@@ -1,0 +1,610 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases (each prints a progress line first, so a cut run shows where it
+stopped; any failure raises and exits non-zero):
+  0. the card: nvidia-smi name and power limit, torch's device name;
+  1. build the hand-written kernels from maskfusion_tpu_torch/csrc;
+  2. each kernel against its plain PyTorch version at the main path's
+     shapes (640x480; the scan also on the 160x120 synthetic scene): depth
+     agreement, the scan's winner ids (check_scan), kernel and plain times,
+     the card's bound;
+  3. the -static engine at 640x480 with a 2^22-surfel map on bench.py's
+     synthetic frames: 8 warm-up and 20 timed frames, FPS and the kernels'
+     launch counts over that run; then per-stage device times (CUDA events,
+     6 frames) and a torch.profiler view of 3 frames (device busy share,
+     runtime calls per frame);
+  4. 6 frames of a 160x120 synthetic trajectory through the port on the
+     card and on the CPU (plain kernel versions): per-frame pose agreement
+     and the trajectory error against ground truth.
+The last lines are the card's nvidia-smi line, one JSON line of kernel
+records, and {"ok": true, "device": {...}}.
+
+The script imports nothing of JAX or of the JAX package, and refuses to run
+without a CUDA card or outside a checkout of the repository.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM published peaks (NVIDIA data sheet): the bound of a kernel is the
+# larger of its bytes over the memory rate and its FP32 operations over the
+# FP32 rate outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+
+BILATERAL_OPS_PER_TAP = 9   # 2 sub/mul for the range term, 2 for space and
+                            # sum, exp, 1 mul + 2 adds of the accumulation
+SCAN_OPS_PER_PIXEL = 10     # the pixel ray
+SCAN_OPS_PER_LIVE_TAP = 27  # two dots, divide, hit, miss^2, r^2, 4 compares
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()
+
+
+def time_ms(fn, reps: int, windows: int = 5, warm_s: float = 0.3):
+    """Device time of fn() from CUDA events: after `warm_s` seconds of calls
+    (the card's clocks ramp up under load), the mean over `reps` calls in
+    each of `windows` windows.  Each window is queued behind a device-side
+    sleep of at least twice the host's time to issue it, so its launches run
+    back to back and it holds no host time.  Returns (median of the windows,
+    the windows, whether every window's sleep outlasted its issue)."""
+    import torch
+
+    calls, t0 = 0, time.perf_counter()
+    while time.perf_counter() - t0 < warm_s:
+        fn()
+        torch.cuda.synchronize()
+        calls += 1
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
+    sleep_cycles = int(2 * host_ms * reps * 2e6)   # 2 GHz: the top clock
+    out, queued = [], True
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = queued and not start.query()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    return float(np.median(out)), out, queued
+
+
+# ---------------------------------------------------------------- inputs
+def make_frames(width: int, height: int, n: int):
+    """bench.py's make_frames (uint16 millimetre depth, textured rgb)."""
+    u, v = np.meshgrid(np.arange(width), np.arange(height))
+    frames = []
+    for i in range(n):
+        depth = (1.5 + 0.0004 * u + 0.0003 * v
+                 + 0.08 * np.sin(u * 0.03 + i * 0.02) * np.cos(v * 0.04)
+                 ).astype(np.float32)
+        depth_mm = np.round(depth * 1000.0).astype(np.uint16)
+        rgb = np.stack([(u * 3 + 5 * i) % 256, (v * 2) % 256, (u + v) % 256],
+                       -1).astype(np.uint8)
+        frames.append((rgb, depth_mm))
+    return frames
+
+
+def _rodrigues(rvec) -> np.ndarray:
+    theta = float(np.linalg.norm(rvec))
+    if theta < 1e-12:
+        return np.eye(3)
+    r = np.asarray(rvec) / theta
+    K = np.array([[0, -r[2], r[1]], [r[2], 0, -r[0]], [-r[1], r[0], 0]])
+    return np.eye(3) + np.sin(theta) * K + (1 - np.cos(theta)) * K @ K
+
+
+def synthetic_trajectory(n: int = 6):
+    """The wavy textured scene and camera path of tests/synthetic.py and
+    tests/test_engine_static.py at 160x120, rendered with a z-buffer."""
+    x = np.linspace(-1.6, 1.6, 700)
+    y = np.linspace(-1.3, 1.3, 560)
+    X, Y = np.meshgrid(x, y)
+    Z = (2.0 + 0.25 * np.sin(2.2 * X) + 0.18 * np.cos(3.1 * Y)
+         + 0.05 * np.sin(7 * X * Y))
+    pts = np.stack([X, Y, Z], -1).reshape(-1, 3).astype(np.float32)
+    r = 127.5 + 60 * np.sin(4.0 * X) * np.cos(3.0 * Y) + 60 * np.sin(45.0 * X)
+    g = 127.5 + 60 * np.sin(2.5 * X + 1.0) + 60 * np.cos(38.0 * Y)
+    b = 127.5 + 60 * np.cos(3.5 * Y + 0.5) + 60 * np.sin(30.0 * (X + Y))
+    cols = np.stack([r, g, b], -1).reshape(-1, 3).clip(0, 255).astype(
+        np.uint8)
+    fx = fy = 130.0
+    cx, cy, w, h = 80.0, 60.0, 160, 120
+    poses = []
+    for i in range(n):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = _rodrigues(np.array([0.0, 0.003 * i, 0.0009 * i]))
+        T[:3, 3] = [0.004 * i, 0.0, -0.002 * i]
+        poses.append(T)
+    frames = []
+    for T in poses:
+        p_cam = (pts - T[:3, 3].astype(np.float64)) @ T[:3, :3].astype(
+            np.float64)
+        z = p_cam[:, 2]
+        uf = p_cam[:, 0] * fx / z + cx
+        vf = p_cam[:, 1] * fy / z + cy
+        u = np.round(uf).astype(np.int64)
+        v = np.round(vf).astype(np.int64)
+        ok = (z > 0.05) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+        lin = v[ok] * w + u[ok]
+        zok = z[ok].astype(np.float32)
+        zbuf = np.full(h * w, np.inf, np.float32)
+        np.minimum.at(zbuf, lin, zok)
+        near = zok <= zbuf[lin] * (1 + 5e-3)
+        du = uf[ok] - np.round(uf[ok])
+        dv = vf[ok] - np.round(vf[ok])
+        key = np.where(near, (du * du + dv * dv).astype(np.float32), np.inf)
+        best = np.full(h * w, np.inf, np.float32)
+        np.minimum.at(best, lin, key)
+        win = near & (key <= best[lin])
+        rgb = np.zeros((h * w, 3), np.uint8)
+        rgb[lin[win]] = cols[ok][win]
+        depth = np.zeros(h * w, np.float32)
+        depth[lin[win]] = zok[win]
+        frames.append((rgb.reshape(h, w, 3), depth.reshape(h, w)))
+    return poses, frames, (fx, fy, cx, cy, w, h)
+
+
+# depth-differing pixels stay under 3e-3 everywhere; winner ids flip on
+# ties far more often on this smooth scene (each surfel rendered back at the
+# pose it was made from) than on the VGA bench map, which keeps 3e-3
+SYNTHETIC_SCAN_MAX_FLIPS = 5e-2
+
+
+def synthetic_depth():
+    """Frame 0 of synthetic_trajectory with a hole in its depth: rgb,
+    metric depth and the intrinsics (fx, fy, cx, cy)."""
+    _, frames, (fx, fy, cx, cy, _, _) = synthetic_trajectory(1)
+    rgb, depth = frames[0]
+    depth = depth.copy()
+    depth[20:24, 30:40] = 0.0
+    return rgb, depth, (fx, fy, cx, cy)
+
+
+def synthetic_scan_args(device, h: int = 120, w: int = 160):
+    """The scan's arguments on synthetic_depth's surfels rendered back at
+    the identity pose, cropped to h x w: (pos, normal, radius, live, fx, fy,
+    cx, cy, max_depth)."""
+    import torch
+
+    from maskfusion_tpu_torch.camera import CameraIntrinsics
+    from maskfusion_tpu_torch.mapping import surfel_map as sm
+    from maskfusion_tpu_torch.ops import preprocess as pp
+    from maskfusion_tpu_torch.ops import splat
+
+    rgb, depth, k = synthetic_depth()
+    intr = CameraIntrinsics(*k)
+    rgb, depth = rgb[:h, :w].copy(), depth[:h, :w].copy()
+    vmap = pp.create_vmap(torch.from_numpy(depth).to(device), intr, 5.0)
+    nmap = pp.create_nmap(vmap)
+    eye = torch.eye(4, device=device)
+    m = sm.init_from_frame(1 << 16, vmap, vmap, nmap,
+                           torch.from_numpy(rgb).to(device),
+                           torch.zeros(depth.shape, dtype=torch.uint8,
+                                       device=device), 0, eye, intr)
+    im = splat.render_index_map(m, eye, intr, h, w, 1.0, 200, 5.0)
+    return (im.pos.contiguous(), im.normal.contiguous(),
+            im.radius.contiguous(), im.index >= 0, intr.fx, intr.fy,
+            intr.cx, intr.cy, 5.0)
+
+
+# ---------------------------------------------------------------- bounds
+def bilateral_bound(H: int, W: int, R: int):
+    taps_y = sum(min(y + R, H - 1) - max(y - R, 0) + 1 for y in range(H))
+    taps_x = sum(min(x + R, W - 1) - max(x - R, 0) + 1 for x in range(W))
+    ops = BILATERAL_OPS_PER_TAP * taps_y * taps_x
+    nbytes = H * W * 4 * 2
+    return bound_record(ops, nbytes)
+
+
+def scan_bound(live, window: int = 2):
+    import torch
+
+    H, W = live.shape
+    k = 2 * window + 1
+    box = torch.nn.functional.conv2d(
+        live.to(torch.float32)[None, None],
+        torch.ones((1, 1, k, k), device=live.device), padding=window)
+    live_taps = int(box.sum().item())
+    ops = SCAN_OPS_PER_PIXEL * H * W + SCAN_OPS_PER_LIVE_TAP * live_taps
+    nbytes = H * W * (12 + 12 + 4 + 1) + H * W * (4 + 4)
+    return bound_record(ops, nbytes)
+
+
+def bound_record(ops: float, nbytes: float):
+    t_ops = ops / PEAK_FP32_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes}
+
+
+# ---------------------------------------------------------------- checks
+def check_scan(args, z, s, zp, sp, window: int = 2,
+               max_flips: float = 3e-3) -> dict:
+    """Hold the scan kernel's (best_z, best_src) = (z, s) against its plain
+    version's (zp, sp) on the same `args`; raise AssertionError outside.
+
+    Depth, as tests/test_pallas.py: fewer than 3e-3 of the pixels differ by
+    more than 1e-5.  Winner (best_src picks the normal, colour and
+    confidence that combined_predict fetches): s is -1 exactly where z is
+    +inf, and every winner is a live tap inside its pixel's window whose
+    disk the pixel ray meets within the disk's radius (1e-3 relative slack
+    on r^2), at the kernel's z to 1e-5.  Where s differs from sp at equal
+    depth, the kernel's tap is thus a true tie; such pixels stay under
+    `max_flips` (inclusive).  The hit is recomputed here in float64."""
+    import torch
+
+    pos, normal, radius, live, fx, fy, cx, cy, max_depth = args
+    H, W = radius.shape
+    both_inf = torch.isinf(z) & torch.isinf(zp)
+    differ = ~((z - zp).abs() <= 1e-5) & ~both_inf
+    frac = float(differ.double().mean().item())
+    same = ~differ & torch.isfinite(zp)
+    err = float((z - zp).abs()[same].max().item()) if bool(same.any()) \
+        else 0.0
+    flips = float(((s != sp) & ~differ).double().mean().item())
+    if not torch.equal(s >= 0, torch.isfinite(z)):
+        raise AssertionError("predict_l0_scan: best_src >= 0 is not where "
+                             "best_z is finite")
+    won = s >= 0
+    yy, xx = torch.meshgrid(torch.arange(H, device=z.device),
+                            torch.arange(W, device=z.device), indexing="ij")
+    y, x, src = yy[won], xx[won], s[won].long()
+    in_window = (((src // W - y).abs() <= window)
+                 & ((src % W - x).abs() <= window) & (src < H * W))
+    src = torch.where(in_window, src, 0)
+    lx = (x.double() - cx) / fx
+    ly = (y.double() - cy) / fy
+    ray = torch.stack([lx, ly, torch.ones_like(lx)], -1)
+    ray = ray / ray.norm(dim=-1, keepdim=True)
+    cp = pos.reshape(-1, 3)[src].double()
+    cn = normal.reshape(-1, 3)[src].double()
+    hit = ray * ((cp * cn).sum(-1) / (ray * cn).sum(-1))[:, None]
+    miss2 = ((hit - cp) ** 2).sum(-1)
+    r2 = radius.reshape(-1)[src].double() ** 2
+    dz = (hit[:, 2] - z[won].double()).abs()
+    depth_err = float(dz.max().item()) if bool(won.any()) else 0.0
+    bad = ~(in_window & live.reshape(-1)[src] & (miss2 <= r2 * (1 + 1e-3))
+            & (dz <= 1e-5) & (z[won] > 0) & (z[won] <= max_depth))
+    out = {"differing_fraction": frac, "max_abs_err": err,
+           "winner_id_flips": flips, "winner_depth_err": depth_err}
+    if bool(bad.any()):
+        i = int(bad.nonzero()[0, 0].item())
+        raise AssertionError(
+            f"predict_l0_scan: {int(bad.sum().item())} winners are no hit "
+            f"at their pixel's depth, e.g. pixel ({int(y[i])}, {int(x[i])}) "
+            f"-> tap {int(s[won][i])} (in window {bool(in_window[i])}, "
+            f"|dz| {float(dz[i]):.3e}); {out}")
+    if not (frac < 3e-3 and flips <= max_flips):
+        raise AssertionError(
+            f"predict_l0_scan disagrees: {frac} of pixels in depth (bound "
+            f"3e-3), winner ids at {flips} (bound {max_flips}); {out}")
+    return out
+
+
+# ---------------------------------------------------------------- phases
+def phase_kernels(dev, kernels, MaskFusion, Config, Resolution,
+                  CameraIntrinsics, FrameData, frames):
+    import torch
+
+    from maskfusion_tpu_torch import se3
+    from maskfusion_tpu_torch.ops import splat as splat_ops
+
+    records = []
+    W, H = 640, 480
+    # --- kernel 1 at the main path's shapes: VGA, R=6, zero holes
+    depth = frames[0][1].astype(np.float32) * np.float32(1e-3)
+    depth[100:140, 200:260] = 0.0
+    depth[300:305, :] = 0.0
+    depth[:, 500:502] = 0.0
+    d = torch.from_numpy(depth).to(dev)
+    R, ss, sc = 6, 0.024691358, 555.556
+    out = kernels.bilateral_depth(d, R, ss, sc, 0.03)
+    torch.cuda.synchronize()
+    ref = kernels.bilateral_depth_plain(d, R, ss, sc, 0.03)
+    err = float((out - ref).abs().max().item())
+    log(f"  bilateral_depth 480x640 R=6: max |kernel - plain| = {err:.3e}")
+    if not err <= 1e-5:
+        raise AssertionError(f"bilateral_depth disagrees: {err} > 1e-5")
+    ms, ms_win, queued = time_ms(
+        lambda: kernels.bilateral_depth(d, R, ss, sc, 0.03), 50)
+    plain_ms, _, plain_queued = time_ms(
+        lambda: kernels.bilateral_depth_plain(d, R, ss, sc, 0.03), 3, 3)
+    rec = {"name": "bilateral_depth", "route": "cuda",
+           "source": "maskfusion_tpu_torch/csrc/bilateral_depth.cu",
+           "replaces": "maskfusion_tpu/ops/pallas_kernels.py:121",
+           "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": None, "ms_windows": ms_win,
+           "windows_queued": [queued, plain_queued],
+           **bilateral_bound(H, W, R)}
+    records.append(rec)
+    log(f"  bilateral_depth: {ms * 1e3:.1f} us (plain {plain_ms:.2f} ms), "
+        f"bound {rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']}")
+
+    # --- kernel 2 on a real index map rendered at 480x640
+    intr = CameraIntrinsics(528.0, 528.0, 320.0, 240.0)
+    eng = MaskFusion(Resolution(W, H), intr,
+                     Config(static_mode=True,
+                            global_surfel_capacity=1 << 22), device=dev)
+    eng.process_frame(FrameData(rgb=frames[0][0], depth=frames[0][1]))
+    st = eng.global_model.state
+    im = splat_ops.render_index_map(
+        st.map, se3.pose_inverse(st.pose), intr, H, W, 1.0,
+        eng.cfg.effective_time_delta(), eng.cfg.depth_cutoff)
+    live = im.index >= 0
+    args = (im.pos.contiguous(), im.normal.contiguous(),
+            im.radius.contiguous(), live, intr.fx, intr.fy, intr.cx,
+            intr.cy, eng.cfg.depth_cutoff)
+    z, s = kernels.predict_l0_scan(*args)
+    torch.cuda.synchronize()
+    zp, sp = kernels.predict_l0_scan_plain(*args)
+    agree = check_scan(args, z, s, zp, sp)
+    frac, err = agree["differing_fraction"], agree["max_abs_err"]
+    log(f"  predict_l0_scan 480x640 ({int(live.sum().item())} live "
+        f"texels): differing pixels {frac:.2e}, max |dz| elsewhere "
+        f"{err:.3e}; winner ids differ at equal depth at "
+        f"{agree['winner_id_flips']:.2e}; every winner's own hit depth "
+        f"within {agree['winner_depth_err']:.3e} of best_z")
+    small = synthetic_scan_args(dev)
+    small_agree = check_scan(small, *kernels.predict_l0_scan(*small),
+                             *kernels.predict_l0_scan_plain(*small),
+                             max_flips=SYNTHETIC_SCAN_MAX_FLIPS)
+    log(f"  predict_l0_scan 120x160 synthetic scene: {small_agree}")
+    ms, ms_win, queued = time_ms(lambda: kernels.predict_l0_scan(*args), 50)
+    plain_ms, _, plain_queued = time_ms(
+        lambda: kernels.predict_l0_scan_plain(*args), 3, 3)
+    rec = {"name": "predict_l0_scan", "route": "cuda",
+           "source": "maskfusion_tpu_torch/csrc/predict_l0_scan.cu",
+           "replaces": "maskfusion_tpu/ops/pallas_kernels.py:230",
+           "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": None, "ms_windows": ms_win,
+           "windows_queued": [queued, plain_queued],
+           "differing_fraction": frac,
+           "winner_id_flips": agree["winner_id_flips"],
+           "winner_depth_err": agree["winner_depth_err"],
+           **scan_bound(live)}
+    records.append(rec)
+    log(f"  predict_l0_scan: {ms * 1e3:.1f} us (plain {plain_ms:.2f} ms), "
+        f"bound {rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']}")
+    del eng, st, im
+    return records
+
+
+def phase_engine(dev, kernels, MaskFusion, Config, Resolution,
+                 CameraIntrinsics, FrameData, frames, n_warm, n_timed,
+                 n_stage):
+    import torch
+
+    W, H = 640, 480
+    cfg = Config(static_mode=True, global_surfel_capacity=1 << 22)
+    engine = MaskFusion(Resolution(W, H),
+                        CameraIntrinsics(528.0, 528.0, 320.0, 240.0), cfg,
+                        device=dev)
+    fd = [FrameData(rgb=rgb, depth=d, timestamp=float(i))
+          for i, (rgb, d) in enumerate(frames)]
+    n_main = n_warm + n_timed
+    # the main path: every launch count starts at 0 here
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    for f in fd[:n_warm]:
+        engine.process_frame(f)
+    engine.flush_diagnostics()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t_start
+
+    t0 = time.perf_counter()
+    staged = engine.upload_frame(fd[n_warm])
+    for nxt in fd[n_warm + 1:n_main]:
+        nxt_staged = engine.upload_frame(nxt)
+        engine.process_frame(staged)
+        staged = nxt_staged
+    engine.process_frame(staged)
+    diag = engine.flush_diagnostics()
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {"bilateral_depth": kernels.bilateral_depth.launches,
+                "predict_l0_scan": kernels.predict_l0_scan.launches}
+    fps = n_timed / total
+    log(f"  warm-up {n_warm} frames in {warm_s:.2f} s; timed {n_timed} "
+        f"frames in {total:.3f} s = {fps:.2f} FPS")
+    log(f"  launches over the {n_main} main-path frames: {launches}")
+    log(f"  diagnostics: {diag}")
+    for name, count in launches.items():
+        if count < n_main:
+            raise AssertionError(
+                f"{name} launched {count} times in {n_main} frames")
+    pose = engine.current_pose
+    if not np.isfinite(pose).all():
+        raise AssertionError(f"non-finite pose:\n{pose}")
+    if not diag.get("surfels", 0) > 0:
+        raise AssertionError(f"empty map after the run: {diag}")
+
+    # per-stage device times (CUDA events at the stage boundaries)
+    marks = []
+
+    def hook(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    engine.stage_hook = hook
+    for f in fd[n_main:n_main + n_stage]:
+        engine.process_frame(f)
+    engine.stage_hook = None
+    torch.cuda.synchronize()
+    stages: dict = {}
+    for i in range(0, len(marks), 4):
+        frame_marks = marks[i:i + 4]
+        for (_, a), (name, b) in zip(frame_marks, frame_marks[1:]):
+            stages.setdefault(name, []).append(a.elapsed_time(b))
+    stage_ms = {k: float(np.mean(v)) for k, v in stages.items()}
+    log(f"  stage device ms (mean of {n_stage} frames): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stage_ms.items()))
+    prof = profile_frames(engine, fd[n_main + n_stage:], 1000.0 / fps)
+    return {"fps": fps, "timed_s": total, "frames_timed": n_timed,
+            "stage_ms": stage_ms, "launches": launches,
+            "surfels": diag.get("surfels"), "profile": prof}
+
+
+def profile_frames(engine, frames, wall_ms_per_frame: float):
+    """torch.profiler over a few frames: device busy time per frame (the
+    sum of the card's kernel and copy intervals), its share of the
+    unprofiled frame time, and the host's runtime calls per frame."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n = len(frames)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for f in frames:
+            engine.process_frame(f)
+        torch.cuda.synchronize()
+    busy_us = 0.0
+    calls: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += e.time_range.elapsed_us()
+        elif e.name.startswith("cuda"):
+            calls[e.name] = calls.get(e.name, 0) + 1
+    busy_ms = busy_us / 1e3 / n
+    out = {"frames": n, "device_busy_ms_per_frame": busy_ms,
+           "device_busy_share": busy_ms / wall_ms_per_frame,
+           "runtime_calls_per_frame": {k: v / n for k, v in sorted(
+               calls.items(), key=lambda kv: -kv[1])[:6]}}
+    log(f"  profile of {n} frames: device busy {busy_ms:.2f} ms/frame = "
+        f"{out['device_busy_share']:.1%} of the unprofiled "
+        f"{wall_ms_per_frame:.2f} ms/frame; runtime calls/frame "
+        f"{out['runtime_calls_per_frame']}")
+    return out
+
+
+def phase_parity(dev, MaskFusion, Config, Resolution, CameraIntrinsics,
+                 FrameData):
+    import torch
+
+    poses, frames, (fx, fy, cx, cy, w, h) = synthetic_trajectory(6)
+    cfg = dict(global_surfel_capacity=1 << 16, static_mode=True,
+               use_so3=False)
+
+    def run(device):
+        eng = MaskFusion(Resolution(w, h), CameraIntrinsics(fx, fy, cx, cy),
+                         Config(**cfg), device=device)
+        out = []
+        for i, (rgb, depth) in enumerate(frames):
+            eng.process_frame(FrameData(rgb=rgb, depth=depth,
+                                        timestamp=float(i)))
+            out.append(eng.current_pose.astype(np.float64))
+        return out
+
+    card, cpu = run(dev), run(torch.device("cpu"))
+    dpos = max(np.linalg.norm(a[:3, 3] - b[:3, 3])
+               for a, b in zip(card, cpu))
+    drot = max(np.degrees(np.arccos(np.clip(
+        (np.trace(a[:3, :3].T @ b[:3, :3]) - 1) / 2, -1, 1)))
+        for a, b in zip(card, cpu))
+    ate = float(np.sqrt(np.mean([np.sum((a[:3, 3] - gt[:3, 3]) ** 2)
+                                 for a, gt in zip(card, poses)])))
+    log(f"  card vs CPU: max pose difference {dpos * 1e3:.4f} mm, "
+        f"{drot:.5f} deg; ATE on the card {ate * 1e3:.3f} mm")
+    if not (dpos <= 1e-3 and drot <= 0.05):
+        raise AssertionError(f"card and CPU poses differ: {dpos} m, "
+                             f"{drot} deg")
+    if not ate < 5e-3:
+        raise AssertionError(f"ATE {ate} m >= 5 mm")
+    return {"max_pose_diff_m": dpos, "max_rot_diff_deg": drot,
+            "ate_m": ate}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs the port on a CUDA card", file=sys.stderr)
+        return 2
+    if not (ROOT / "maskfusion_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository "
+              "(maskfusion_tpu_torch/ not found beside the script)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from maskfusion_tpu_torch import CameraIntrinsics, Config, Resolution
+    from maskfusion_tpu_torch.engine import MaskFusion
+    from maskfusion_tpu_torch.frame import FrameData
+    from maskfusion_tpu_torch.ops import kernels
+
+    t_all = time.perf_counter()
+    dev = torch.device("cuda")
+    log("phase 0: the card")
+    smi = nvidia_smi_line()
+    name = torch.cuda.get_device_name(0)
+    log(f"  nvidia-smi: {smi}")
+    log(f"  torch: {torch.__version__} cuda {torch.version.cuda}; "
+        f"device {name}; count {torch.cuda.device_count()}")
+
+    log("phase 1: build the kernels")
+    kernels.load_library()
+    log(f"  built {kernels.library_path().name} in "
+        f"{kernels.build_seconds:.1f} s")
+    for line in kernels.build_log.splitlines():
+        if "registers" in line or line.startswith("=="):
+            log("  " + line.strip())
+
+    n_warm, n_timed, n_stage, n_prof = 8, 20, 6, 3
+    frames = make_frames(640, 480, n_warm + n_timed + n_stage + n_prof)
+    log("phase 2: kernels against their plain versions at 640x480")
+    records = phase_kernels(dev, kernels, MaskFusion, Config, Resolution,
+                            CameraIntrinsics, FrameData, frames)
+
+    log("phase 3: the -static engine at 640x480, 2^22 surfels")
+    run = phase_engine(dev, kernels, MaskFusion, Config, Resolution,
+                       CameraIntrinsics, FrameData, frames, n_warm, n_timed,
+                       n_stage)
+    for rec in records:
+        rec["launches"] = run["launches"][rec["name"]]
+        log(f"  {rec['name']}: {rec['launches']} launches in the run, "
+            f"{rec['ms'] * 1e3:.1f} us per launch against a bound of "
+            f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']})")
+
+    log("phase 4: 160x120 synthetic trajectory, card against CPU")
+    parity = phase_parity(dev, MaskFusion, Config, Resolution,
+                          CameraIntrinsics, FrameData)
+    torch.cuda.synchronize()
+    log(f"engine: {json.dumps({k: v for k, v in run.items()})}")
+    log(f"parity: {json.dumps(parity)}")
+    log(f"total {time.perf_counter() - t_all:.1f} s")
+    print(smi, flush=True)
+    print(json.dumps({"kernels": records}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,285 @@
+"""The port's hand-written Hopper kernels, their plain PyTorch versions and
+the build.
+
+Two kernels of the JAX package's Pallas set are on the -static path:
+
+  bilateral_depth   csrc/bilateral_depth.cu — replaces
+                    maskfusion_tpu/ops/pallas_kernels.py:121-161
+                    (bilateral_filter_depth_pallas)
+  predict_l0_scan   csrc/predict_l0_scan.cu — replaces
+                    maskfusion_tpu/ops/pallas_kernels.py:230-338
+                    (predict_l0_scan_pallas)
+
+Each source note says what bounds the kernel on the card and what its design
+does about it.  Each public wrapper launches its CUDA kernel for a CUDA
+tensor and takes its plain version only for a tensor on the CPU (the tests'
+path); for a CUDA tensor it launches or raises.  Each wrapper counts its
+launches in a plain integer attribute, ``<wrapper>.launches``.
+
+The sources are compiled with nvcc into one shared library with a plain C
+interface, loaded with ctypes: one ``nvcc -c`` per source, all started
+together, then one link.  The library lands in ``build/kernels/`` at the
+repository root, named by a hash of the sources, and is built at first use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib: Optional[ctypes.CDLL] = None
+build_log = ""          # nvcc/ptxas output of the build made by this process
+build_seconds = 0.0
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit on the machine with the card")
+    return nvcc
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return _BUILD_DIR / f"libmft_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library (if not built yet)."""
+    global build_log, build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *_NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for src, p in procs:
+            text, _ = p.communicate()
+            logs.append(f"== {src.name}\n{text}")
+            if p.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError("nvcc failed on " + ", ".join(failed) + "\n"
+                               + "\n".join(logs))
+        tmp_so = Path(tmp) / out.name
+        link = subprocess.run(
+            [nvcc, "-shared", *[str(o) for o in objs], "-o", str(tmp_so)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed\n" + link.stdout)
+        os.replace(tmp_so, out)   # atomic: concurrent builds agree
+    build_log = "\n".join(logs)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.mft_bilateral_depth.argtypes = [P, P, I, I, I, F, F, F, P]
+        lib.mft_bilateral_depth.restype = I
+        lib.mft_predict_l0_scan.argtypes = [P, P, P, P, P, P, I, I, I,
+                                            F, F, F, F, F, P]
+        lib.mft_predict_l0_scan.restype = I
+        _lib = lib
+    return _lib
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")
+
+
+def reset_launch_counts() -> None:
+    bilateral_depth.launches = 0
+    predict_l0_scan.launches = 0
+
+
+def shift(img: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
+    """img sampled at (y+dy, x+dx) with constant fill outside (leading dims
+    H, W).  The plain versions' tap; ops/preprocess re-exports it."""
+    H, W = img.shape[:2]
+    pad = [0, 0] * (img.dim() - 2) + [max(0, -dx), max(0, dx),
+                                      max(0, -dy), max(0, dy)]
+    p = torch.nn.functional.pad(img, pad, value=fill)
+    return p[max(0, dy):max(0, dy) + H, max(0, dx):max(0, dx) + W]
+
+
+# ---------------------------------------------------------------------------
+# kernel 1: bilateral depth filter
+# ---------------------------------------------------------------------------
+
+def bilateral_depth_plain(depth: torch.Tensor, radius: int,
+                          sigma_space2_inv_half: float,
+                          sigma_color2_inv_half: float,
+                          min_valid_depth: float) -> torch.Tensor:
+    """Plain PyTorch version: the (2R+1)^2 tap loop over a +inf-padded
+    image, as maskfusion_tpu/ops/preprocess.py:66-86."""
+    H, W = depth.shape
+    padded = torch.nn.functional.pad(depth[None], (radius,) * 4,
+                                     value=float("inf"))[0]
+    sum1 = torch.zeros_like(depth)
+    sum2 = torch.zeros_like(depth)
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            nb = padded[radius + dy:radius + dy + H,
+                        radius + dx:radius + dx + W]
+            space2 = float(dy * dy + dx * dx)
+            color2 = (depth - nb) ** 2
+            w = torch.exp(-(space2 * sigma_space2_inv_half
+                            + color2 * sigma_color2_inv_half))
+            ok = torch.isfinite(nb)
+            sum1 = sum1 + torch.where(ok, nb * w, 0.0)
+            sum2 = sum2 + torch.where(ok, w, 0.0)
+    out = sum1 / torch.clamp(sum2, min=1e-20)
+    return torch.where(depth <= min_valid_depth, 0.0, out)
+
+
+def bilateral_depth(depth: torch.Tensor, radius: int = 6,
+                    sigma_space2_inv_half: float = 0.024691358,
+                    sigma_color2_inv_half: float = 555.556,
+                    min_valid_depth: float = 0.03) -> torch.Tensor:
+    """(H, W) f32 metric depth -> bilateral-filtered depth (0 where the
+    input is <= min_valid_depth).  CUDA kernel csrc/bilateral_depth.cu."""
+    if depth.device.type == "cpu":
+        return bilateral_depth_plain(depth, radius, sigma_space2_inv_half,
+                                     sigma_color2_inv_half, min_valid_depth)
+    _check(depth, "depth", torch.float32, depth.shape)
+    if depth.dim() != 2:
+        raise ValueError("depth: expected an (H, W) tensor")
+    H, W = depth.shape
+    out = torch.empty_like(depth)
+    err = load_library().mft_bilateral_depth(
+        depth.data_ptr(), out.data_ptr(), H, W, int(radius),
+        float(sigma_space2_inv_half), float(sigma_color2_inv_half),
+        float(min_valid_depth), _stream(depth))
+    _raise_on(err, "bilateral_depth")
+    bilateral_depth.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel 2: level-0 ray-disk winner scan of combined_predict
+# ---------------------------------------------------------------------------
+
+def predict_l0_scan_plain(pos, normal, radius, live, fx, fy, cx, cy,
+                          max_depth, window: int = 2
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: the shifted-pad tap loop of
+    maskfusion_tpu/ops/splat.py:304-342."""
+    H, W = radius.shape
+    dev = radius.device
+    u = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+    v = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    lx = (u - cx) / fx
+    ly = (v - cy) / fy
+    lnorm = torch.sqrt(lx * lx + ly * ly + 1.0)
+    l = torch.stack([lx / lnorm, ly / lnorm, 1.0 / lnorm], dim=-1)
+    yy = torch.arange(H, device=dev)[:, None].expand(H, W)
+    xx = torch.arange(W, device=dev)[None, :].expand(H, W)
+
+    best_z = torch.full((H, W), float("inf"), device=dev)
+    best_src = torch.full((H, W), -1, dtype=torch.int32, device=dev)
+    packed = torch.cat([pos, normal, radius[..., None],
+                        live.to(torch.float32)[..., None]], dim=-1)
+    for dy in range(-window, window + 1):
+        for dx in range(-window, window + 1):
+            t = shift(packed, dy, dx, 0.0)
+            cp = t[..., 0:3]
+            cn = t[..., 3:6]
+            crad = t[..., 6]
+            alive = t[..., 7] > 0
+            denom = (l * cn).sum(-1)
+            z_star = (cp * cn).sum(-1) / torch.where(
+                denom.abs() > 1e-12, denom, 1e-12)
+            hit = l * z_star[..., None]
+            z_cam = hit[..., 2]
+            miss2 = ((hit - cp) ** 2).sum(-1)
+            ok = (alive & (miss2 <= crad * crad) & (z_cam > 0)
+                  & (z_cam <= max_depth) & (z_cam < best_z))
+            best_z = torch.where(ok, z_cam, best_z)
+            src = ((yy + dy).clamp(0, H - 1) * W
+                   + (xx + dx).clamp(0, W - 1)).to(torch.int32)
+            best_src = torch.where(ok, src, best_src)
+    return best_z, best_src
+
+
+def predict_l0_scan(pos: torch.Tensor, normal: torch.Tensor,
+                    radius: torch.Tensor, live: torch.Tensor,
+                    fx: float, fy: float, cx: float, cy: float,
+                    max_depth: float, window: int = 2
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest ray-disk hit per pixel over the +-window index-map taps.
+    Returns best_z (H, W) f32 (+inf: none) and best_src (H, W) int32, the
+    winning tap's y*W + x (-1: none).  CUDA kernel csrc/predict_l0_scan.cu."""
+    if radius.device.type == "cpu":
+        return predict_l0_scan_plain(pos, normal, radius, live, fx, fy, cx,
+                                     cy, max_depth, window)
+    H, W = radius.shape
+    _check(pos, "pos", torch.float32, (H, W, 3))
+    _check(normal, "normal", torch.float32, (H, W, 3))
+    _check(radius, "radius", torch.float32, (H, W))
+    _check(live, "live", torch.bool, (H, W))
+    best_z = torch.empty((H, W), dtype=torch.float32, device=radius.device)
+    best_src = torch.empty((H, W), dtype=torch.int32, device=radius.device)
+    err = load_library().mft_predict_l0_scan(
+        pos.data_ptr(), normal.data_ptr(), radius.data_ptr(),
+        live.data_ptr(), best_z.data_ptr(), best_src.data_ptr(), H, W,
+        int(window), float(fx), float(fy), float(cx), float(cy),
+        float(max_depth), _stream(radius))
+    _raise_on(err, "predict_l0_scan")
+    predict_l0_scan.launches += 1
+    return best_z, best_src
+
+
+reset_launch_counts()
