@@ -18,7 +18,22 @@ stopped; any failure raises and exits non-zero):
      runtime calls per frame);
   4. 6 frames of a 160x120 synthetic trajectory through the port on the
      card and on the CPU (plain kernel versions): per-frame pose agreement
-     and the trajectory error against ground truth.
+     and the trajectory error against ground truth;
+  5. kernel 3 (the geometric edge map) against its plain version on the
+     level-0 maps of bench.py's first two-object frame at 640x480, timed as
+     the others;
+  6. the synchronous multi-object engine at 640x480 (2^22 global and 2^19
+     object surfels) on bench.py's two-object frames: 14 warm-up and 12
+     timed frames, FPS, the three kernels' launch counts over that run, the
+     run reaching 3 models; then per-stage device and host times (4
+     frames) and a torch.profiler view (2 frames);
+  7. 7 frames of a 160x120 two-object scene through the multi-object engine
+     on the CPU, and on the card from the CPU's state after both spawns:
+     per frame the same model and class ids and the global pose within
+     1 mm / 0.05 deg; up to frame 4, object poses within 8 mm and surfel
+     counts within 1% (the bounds of the port's lockstep test against the
+     JAX engine); the later frames, each run's object error against the
+     scene's motion and a card run from frame 0 are reported.
 The last lines are the card's nvidia-smi line, one JSON line of kernel
 records, and {"ok": true, "device": {...}}.
 
@@ -48,6 +63,9 @@ BILATERAL_OPS_PER_TAP = 9   # 2 sub/mul for the range term, 2 for space and
                             # sum, exp, 1 mul + 2 adds of the accumulation
 SCAN_OPS_PER_PIXEL = 10     # the pixel ray
 SCAN_OPS_PER_LIVE_TAP = 27  # two dots, divide, hit, miss^2, r^2, 4 compares
+EDGE_OPS_PER_NEIGHBOUR = 17  # side: 3 sub, 3 mul, 2 add; concavity: 3 mul,
+                             # 2 add, 1 sub; the gate, |side|, 2 maxima
+EDGE_OPS_PER_PIXEL = 8 * EDGE_OPS_PER_NEIGHBOUR + 3   # 2 weights, the clamp
 
 
 def log(msg: str) -> None:
@@ -118,9 +136,46 @@ def _rodrigues(rvec) -> np.ndarray:
     return np.eye(3) + np.sin(theta) * K + (1 - np.cos(theta)) * K @ K
 
 
-def synthetic_trajectory(n: int = 6):
-    """The wavy textured scene and camera path of tests/synthetic.py and
-    tests/test_engine_static.py at 160x120, rendered with a z-buffer."""
+def render_points(pts, cols, pose_c2w, fx, fy, cx, cy, w, h, labels=None):
+    """Z-buffer point render of tests/synthetic.py and
+    maskfusion_tpu/tools/make_sequence.py: among the points within 0.5% of
+    a pixel's nearest depth, the one projecting closest to the pixel centre
+    wins.  Returns rgb uint8, metric depth (0 = empty)[, labels]."""
+    T = np.asarray(pose_c2w, np.float64)
+    p_cam = (pts - T[:3, 3]) @ T[:3, :3]
+    z = p_cam[:, 2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        uf = p_cam[:, 0] * fx / z + cx
+        vf = p_cam[:, 1] * fy / z + cy
+        u = np.round(uf).astype(np.int64)
+        v = np.round(vf).astype(np.int64)
+    ok = (z > 0.05) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    lin = v[ok] * w + u[ok]
+    zok = z[ok].astype(np.float32)
+    zbuf = np.full(h * w, np.inf, np.float32)
+    np.minimum.at(zbuf, lin, zok)
+    near = zok <= zbuf[lin] * (1 + 5e-3)
+    du = uf[ok] - np.round(uf[ok])
+    dv = vf[ok] - np.round(vf[ok])
+    key = np.where(near, (du * du + dv * dv).astype(np.float32), np.inf)
+    best = np.full(h * w, np.inf, np.float32)
+    np.minimum.at(best, lin, key)
+    win = near & (key <= best[lin])
+    rgb = np.zeros((h * w, 3), np.uint8)
+    rgb[lin[win]] = cols[ok][win]
+    depth = np.zeros(h * w, np.float32)
+    depth[lin[win]] = zok[win]
+    out = [rgb.reshape(h, w, 3), depth.reshape(h, w)]
+    if labels is not None:
+        lab = np.zeros(h * w, np.uint8)
+        lab[lin[win]] = labels[ok][win]
+        out.append(lab.reshape(h, w))
+    return tuple(out)
+
+
+def wavy_scene():
+    """tests/synthetic.make_scene: a dense textured wavy surface ~2 m in
+    front of the origin."""
     x = np.linspace(-1.6, 1.6, 700)
     y = np.linspace(-1.3, 1.3, 560)
     X, Y = np.meshgrid(x, y)
@@ -132,41 +187,130 @@ def synthetic_trajectory(n: int = 6):
     b = 127.5 + 60 * np.cos(3.5 * Y + 0.5) + 60 * np.sin(30.0 * (X + Y))
     cols = np.stack([r, g, b], -1).reshape(-1, 3).clip(0, 255).astype(
         np.uint8)
-    fx = fy = 130.0
-    cx, cy, w, h = 80.0, 60.0, 160, 120
+    return pts, cols
+
+
+SMALL = (130.0, 130.0, 80.0, 60.0, 160, 120)   # fx, fy, cx, cy, w, h
+
+
+def synthetic_trajectory(n: int = 6):
+    """The wavy textured scene and camera path of tests/synthetic.py and
+    tests/test_engine_static.py at 160x120."""
+    pts, cols = wavy_scene()
     poses = []
     for i in range(n):
         T = np.eye(4, dtype=np.float32)
         T[:3, :3] = _rodrigues(np.array([0.0, 0.003 * i, 0.0009 * i]))
         T[:3, 3] = [0.004 * i, 0.0, -0.002 * i]
         poses.append(T)
+    frames = [render_points(pts, cols, T, *SMALL) for T in poses]
+    return poses, frames, SMALL
+
+
+def synthetic_two_objects(n: int = 7):
+    """tests/synthetic.make_scene_with_two_objects at 160x120, the motion of
+    tests/test_engine_multimodel.py:172-201 (static camera; object 1 moves
+    along +x from frame 1, object 2 along -y from frame 2): rgb, metric
+    depth and labels per frame."""
+    pts_bg, cols_bg = wavy_scene()
+
+    def patch(cx, cy, phase, off):
+        x = np.linspace(-0.26, 0.26, 320)
+        y = np.linspace(-0.20, 0.20, 240)
+        X, Y = np.meshgrid(x, y)
+        Z = 1.5 + 0.10 * np.sin(4.5 * X + phase) + 0.08 * np.cos(5.5 * Y)
+        p = np.stack([X + cx, Y + cy, Z], -1).reshape(-1, 3).astype(
+            np.float32) + off.astype(np.float32)
+        r = 127.5 + 110 * np.sin(15 * X + phase)
+        g = 127.5 + 110 * np.cos(11 * Y)
+        c = np.stack([r, g, np.full_like(r, 90.0)], -1).reshape(-1, 3)
+        return p, c.clip(0, 255).astype(np.uint8)
+
     frames = []
-    for T in poses:
-        p_cam = (pts - T[:3, 3].astype(np.float64)) @ T[:3, :3].astype(
-            np.float64)
-        z = p_cam[:, 2]
-        uf = p_cam[:, 0] * fx / z + cx
-        vf = p_cam[:, 1] * fy / z + cy
-        u = np.round(uf).astype(np.int64)
-        v = np.round(vf).astype(np.int64)
-        ok = (z > 0.05) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
-        lin = v[ok] * w + u[ok]
-        zok = z[ok].astype(np.float32)
-        zbuf = np.full(h * w, np.inf, np.float32)
-        np.minimum.at(zbuf, lin, zok)
-        near = zok <= zbuf[lin] * (1 + 5e-3)
-        du = uf[ok] - np.round(uf[ok])
-        dv = vf[ok] - np.round(vf[ok])
-        key = np.where(near, (du * du + dv * dv).astype(np.float32), np.inf)
-        best = np.full(h * w, np.inf, np.float32)
-        np.minimum.at(best, lin, key)
-        win = near & (key <= best[lin])
-        rgb = np.zeros((h * w, 3), np.uint8)
-        rgb[lin[win]] = cols[ok][win]
-        depth = np.zeros(h * w, np.float32)
-        depth[lin[win]] = zok[win]
-        frames.append((rgb.reshape(h, w, 3), depth.reshape(h, w)))
-    return poses, frames, (fx, fy, cx, cy, w, h)
+    for i in range(n):
+        p1, c1 = patch(-0.34, -0.05, 0.0,
+                       np.array([0.006 * max(0, i - 1), 0.0, 0.0]))
+        p2, c2 = patch(0.38, 0.02, 1.3,
+                       np.array([0.0, -0.006 * max(0, i - 2), 0.0]))
+        labels = np.concatenate([np.zeros(len(pts_bg), np.uint8),
+                                 np.full(len(p1), 1, np.uint8),
+                                 np.full(len(p2), 2, np.uint8)])
+        frames.append(render_points(
+            np.concatenate([pts_bg, p1, p2]),
+            np.concatenate([cols_bg, c1, c2]), np.eye(4), *SMALL,
+            labels=labels))
+    return frames
+
+
+def vga_camera_pose(s: float) -> np.ndarray:
+    """maskfusion_tpu/tools/make_sequence.camera_pose: an aggressive
+    smooth loop."""
+    w = 2 * np.pi * s
+    T = np.eye(4)
+    T[:3, :3] = _rodrigues(np.array([0.10 * np.sin(w + 0.5),
+                                     0.24 * np.sin(w),
+                                     0.08 * np.sin(2 * w)]))
+    T[:3, 3] = [0.22 * np.sin(w), 0.15 * np.sin(2 * w + 1.0),
+                0.10 * np.sin(w)]
+    return T
+
+
+def vga_points(width: int):
+    """maskfusion_tpu/tools/make_sequence.make_points: a dense wavy
+    background and a textured object patch, ~6 points a pixel at VGA."""
+    n_u = int(width * 3.4)
+    n_v = int(n_u * 0.8)
+    X, Y = np.meshgrid(np.linspace(-1.35, 1.35, n_u),
+                       np.linspace(-1.05, 1.05, n_v))
+    Z = 2.0 + 0.22 * np.sin(2.3 * X) * np.cos(1.9 * Y) + 0.06 * np.sin(7 * X)
+    pts_bg = np.stack([X, Y, Z], -1).reshape(-1, 3).astype(np.float32)
+    r = 127.5 + 90 * np.sin(9 * X) + 30 * np.cos(17 * Y)
+    g = 127.5 + 90 * np.cos(7 * Y) + 25 * np.sin(13 * X)
+    b = 127.5 + 80 * np.sin(5 * (X + Y))
+    cols_bg = np.stack([r, g, b], -1).reshape(-1, 3).clip(0, 255).astype(
+        np.uint8)
+    n = int(width * 1.6)
+    OX, OY = np.meshgrid(np.linspace(-0.28, 0.28, n),
+                         np.linspace(-0.21, 0.21, int(n * 0.75)))
+    OZ = 1.45 + 0.10 * np.sin(4.5 * OX) + 0.08 * np.cos(5.5 * OY)
+    pts_obj = np.stack([OX + 0.12, OY - 0.06, OZ], -1).reshape(-1, 3).astype(
+        np.float32)
+    orr = 127.5 + 110 * np.sin(15 * OX)
+    og = 127.5 + 110 * np.cos(12 * OY)
+    cols_obj = np.stack([orr, og, np.full_like(orr, 70.0)], -1).reshape(
+        -1, 3).clip(0, 255).astype(np.uint8)
+    return pts_bg, cols_bg, pts_obj, cols_obj
+
+
+def make_two_object_frames(width: int, height: int, n: int,
+                           count: int | None = None):
+    """bench.py's make_two_object_frames: a textured wavy background and
+    two independently moving textured patches under an aggressive camera
+    loop, uint16-millimetre depth and per-pixel labels with class ids
+    [0, 7, 8].  The motion spans `n` frames; the first `count` (all by
+    default) are rendered.  Returns (rgb, depth_mm, labels) per frame and
+    the intrinsics (fx, fy, cx, cy)."""
+    pts_bg, cols_bg, pts_o1, cols_o1 = vga_points(width)
+    pts_o2 = pts_o1 + np.array([-0.55, 0.18, 0.05], np.float32)
+    cols_o2 = cols_o1[:, ::-1]
+    labels = np.concatenate([np.zeros(len(pts_bg), np.uint8),
+                             np.full(len(pts_o1), 1, np.uint8),
+                             np.full(len(pts_o2), 2, np.uint8)])
+    cols = np.concatenate([cols_bg, cols_o1, cols_o2])
+    fx = fy = 0.825 * width
+    cx, cy = width / 2.0, height / 2.0
+    frames = []
+    for i in range(n if count is None else count):
+        s = i / max(n - 1, 1)
+        off1 = np.array([0.10 * np.sin(2 * np.pi * s), 0.0, 0.0], np.float32)
+        off2 = np.array([0.0, 0.06 * np.sin(2 * np.pi * s + 1.0), 0.0],
+                        np.float32)
+        pts = np.concatenate([pts_bg, pts_o1 + off1, pts_o2 + off2])
+        rgb, depth, lab = render_points(pts, cols, vga_camera_pose(0.25 * s),
+                                        fx, fy, cx, cy, width, height,
+                                        labels)
+        frames.append((rgb, np.round(depth * 1000.0).astype(np.uint16), lab))
+    return frames, (fx, fy, cx, cy)
 
 
 # depth-differing pixels stay under 3e-3 everywhere; winner ids flip on
@@ -212,6 +356,19 @@ def synthetic_scan_args(device, h: int = 120, w: int = 160):
             intr.cx, intr.cy, 5.0)
 
 
+def synthetic_edge_args(device, h: int = 120, w: int = 160):
+    """The edge map's (vmap, nmap) of synthetic_depth, cropped to h x w."""
+    import torch
+
+    from maskfusion_tpu_torch.camera import CameraIntrinsics
+    from maskfusion_tpu_torch.ops import preprocess as pp
+
+    _, depth, k = synthetic_depth()
+    vmap = pp.create_vmap(torch.from_numpy(depth[:h, :w].copy()).to(device),
+                          CameraIntrinsics(*k), 5.0)
+    return vmap.contiguous(), pp.create_nmap(vmap).contiguous()
+
+
 # ---------------------------------------------------------------- bounds
 def bilateral_bound(H: int, W: int, R: int):
     taps_y = sum(min(y + R, H - 1) - max(y - R, 0) + 1 for y in range(H))
@@ -233,6 +390,15 @@ def scan_bound(live, window: int = 2):
     ops = SCAN_OPS_PER_PIXEL * H * W + SCAN_OPS_PER_LIVE_TAP * live_taps
     nbytes = H * W * (12 + 12 + 4 + 1) + H * W * (4 + 4)
     return bound_record(ops, nbytes)
+
+
+def edge_bound(vmap):
+    """Each map read once (24 B a pixel), the output written once (4 B);
+    the neighbour arithmetic runs on the valid interior pixels only."""
+    H, W = vmap.shape[:2]
+    inner = vmap[1:-1, 1:-1]
+    valid = int((inner[..., 0].isfinite() & (inner[..., 2] > 0)).sum().item())
+    return bound_record(EDGE_OPS_PER_PIXEL * valid, H * W * (24 + 4))
 
 
 def bound_record(ops: float, nbytes: float):
@@ -305,6 +471,31 @@ def check_scan(args, z, s, zp, sp, window: int = 2,
             f"predict_l0_scan disagrees: {frac} of pixels in depth (bound "
             f"3e-3), winner ids at {flips} (bound {max_flips}); {out}")
     return out
+
+
+def check_edge_map(out, ref) -> dict:
+    """Hold the edge kernel's map `out` against its plain version's `ref`,
+    as tests/test_pallas.py holds the Pallas kernel: fewer than 3e-3 of the
+    pixels differ by more than 1e-5 (the concavity gate on sign(side) flips
+    on knife-edge neighbours under another rounding).  Every value is
+    finite and in [0, 1].  Raises AssertionError outside."""
+    import torch
+
+    d = (out - ref).abs()
+    differ = ~(d <= 1e-5)
+    frac = float(differ.double().mean().item())
+    err = float(d[~differ].max().item()) if bool((~differ).any()) else 0.0
+    res = {"differing_fraction": frac, "max_abs_err": err,
+           "max_abs_err_all": float(d.max().item())}
+    if out.shape != ref.shape or out.dtype != torch.float32:
+        raise AssertionError(f"geometric_edge_map: {out.shape} {out.dtype}")
+    if not (bool(out.isfinite().all()) and float(out.min()) >= 0.0
+            and float(out.max()) <= 1.0):
+        raise AssertionError("geometric_edge_map: values outside [0, 1]")
+    if not frac < 3e-3:
+        raise AssertionError(f"geometric_edge_map disagrees at {frac} of "
+                             f"the pixels (bound 3e-3); {res}")
+    return res
 
 
 # ---------------------------------------------------------------- phases
@@ -444,31 +635,46 @@ def phase_engine(dev, kernels, MaskFusion, Config, Resolution,
     if not diag.get("surfels", 0) > 0:
         raise AssertionError(f"empty map after the run: {diag}")
 
-    # per-stage device times (CUDA events at the stage boundaries)
+    stage_ms, _ = stage_times(engine, fd[n_main:n_main + n_stage])
+    prof = profile_frames(engine, fd[n_main + n_stage:], 1000.0 / fps)
+    return {"fps": fps, "timed_s": total, "frames_timed": n_timed,
+            "stage_ms": stage_ms, "launches": launches,
+            "surfels": diag.get("surfels"), "profile": prof}
+
+
+def stage_times(engine, frames):
+    """Per-stage times over `frames` from the engine's stage marks (a mark
+    ends the stage it names; "start" opens a frame): the device timeline
+    between CUDA events recorded at the marks (idle gaps included), and the
+    host's clock between them.  Returns (device ms, host ms), each the mean
+    per frame by stage."""
+    import torch
+
     marks = []
 
     def hook(name):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        marks.append((name, ev))
+        marks.append((name, ev, time.perf_counter()))
 
     engine.stage_hook = hook
-    for f in fd[n_main:n_main + n_stage]:
+    for f in frames:
         engine.process_frame(f)
     engine.stage_hook = None
     torch.cuda.synchronize()
-    stages: dict = {}
-    for i in range(0, len(marks), 4):
-        frame_marks = marks[i:i + 4]
-        for (_, a), (name, b) in zip(frame_marks, frame_marks[1:]):
-            stages.setdefault(name, []).append(a.elapsed_time(b))
-    stage_ms = {k: float(np.mean(v)) for k, v in stages.items()}
-    log(f"  stage device ms (mean of {n_stage} frames): "
-        + ", ".join(f"{k} {v:.2f}" for k, v in stage_ms.items()))
-    prof = profile_frames(engine, fd[n_main + n_stage:], 1000.0 / fps)
-    return {"fps": fps, "timed_s": total, "frames_timed": n_timed,
-            "stage_ms": stage_ms, "launches": launches,
-            "surfels": diag.get("surfels"), "profile": prof}
+    dev: dict = {}
+    host: dict = {}
+    for (_, a, ta), (name, b, tb) in zip(marks, marks[1:]):
+        if name == "start":
+            continue
+        dev.setdefault(name, []).append(a.elapsed_time(b))
+        host.setdefault(name, []).append((tb - ta) * 1e3)
+    dev_ms = {k: float(np.mean(v)) for k, v in dev.items()}
+    host_ms = {k: float(np.mean(v)) for k, v in host.items()}
+    log(f"  stage ms, device timeline / host clock (mean of {len(frames)} "
+        "frames): " + ", ".join(f"{k} {dev_ms[k]:.2f} / {host_ms[k]:.2f}"
+                                for k in dev_ms))
+    return dev_ms, host_ms
 
 
 def profile_frames(engine, frames, wall_ms_per_frame: float):
@@ -503,6 +709,11 @@ def profile_frames(engine, frames, wall_ms_per_frame: float):
     return out
 
 
+def _rot_deg(a, b) -> float:
+    return float(np.degrees(np.arccos(np.clip(
+        (np.trace(a[:3, :3].T @ b[:3, :3]) - 1) / 2, -1, 1))))
+
+
 def phase_parity(dev, MaskFusion, Config, Resolution, CameraIntrinsics,
                  FrameData):
     import torch
@@ -524,9 +735,7 @@ def phase_parity(dev, MaskFusion, Config, Resolution, CameraIntrinsics,
     card, cpu = run(dev), run(torch.device("cpu"))
     dpos = max(np.linalg.norm(a[:3, 3] - b[:3, 3])
                for a, b in zip(card, cpu))
-    drot = max(np.degrees(np.arccos(np.clip(
-        (np.trace(a[:3, :3].T @ b[:3, :3]) - 1) / 2, -1, 1)))
-        for a, b in zip(card, cpu))
+    drot = max(_rot_deg(a, b) for a, b in zip(card, cpu))
     ate = float(np.sqrt(np.mean([np.sum((a[:3, 3] - gt[:3, 3]) ** 2)
                                  for a, gt in zip(card, poses)])))
     log(f"  card vs CPU: max pose difference {dpos * 1e3:.4f} mm, "
@@ -538,6 +747,273 @@ def phase_parity(dev, MaskFusion, Config, Resolution, CameraIntrinsics,
         raise AssertionError(f"ATE {ate} m >= 5 mm")
     return {"max_pose_diff_m": dpos, "max_rot_diff_deg": drot,
             "ate_m": ate}
+
+
+def multiobject_config(Config, **kw):
+    """The slice's configuration: the synchronous multi-object schedule
+    with the per-model loop and MaskFusion segmentation of the frame's
+    masks."""
+    return Config(static_mode=False, seg_method="maskfusion",
+                  pipelined_multiobject=False, batch_object_tracking=False,
+                  **kw)
+
+
+def vga_multiobject_config(Config):
+    """bench.py's two-object configuration (bench.py:201-211), switched to
+    the synchronous schedule."""
+    return multiobject_config(Config, global_surfel_capacity=1 << 22,
+                              object_surfel_capacity=1 << 19,
+                              model_spawn_offset=2)
+
+
+def phase_edge_kernel(dev, kernels, MaskFusion, Config, Resolution,
+                      CameraIntrinsics, frame, intr):
+    """Kernel 3 on the level-0 maps of `frame` as the engine's preprocess
+    makes them."""
+    import torch
+
+    W, H = 640, 480
+    eng = MaskFusion(Resolution(W, H), CameraIntrinsics(*intr),
+                     vga_multiobject_config(Config), device=dev)
+    rgb, depth_mm, _ = frame
+    depth = torch.from_numpy(depth_mm.astype(np.float32) * np.float32(1e-3))
+    prep = eng.preprocess(torch.from_numpy(rgb).to(dev), depth.to(dev),
+                          torch.zeros((H, W), dtype=torch.uint8, device=dev))
+    vmap = prep.levels[0]["vmap"].contiguous()
+    nmap = prep.levels[0]["nmap"].contiguous()
+    wd, wc = eng.cfg.seg_weight_distance, eng.cfg.seg_weight_concavity
+    out = kernels.geometric_edge_map(vmap, nmap, wd, wc)
+    torch.cuda.synchronize()
+    ref = kernels.geometric_edge_map_plain(vmap, nmap, wd, wc)
+    agree = check_edge_map(out, ref)
+    log(f"  geometric_edge_map 480x640: differing pixels "
+        f"{agree['differing_fraction']:.2e}, max |kernel - plain| elsewhere "
+        f"{agree['max_abs_err']:.3e} ({agree['max_abs_err_all']:.3e} over "
+        "all pixels)")
+    small = synthetic_edge_args(dev)
+    small_agree = check_edge_map(kernels.geometric_edge_map(*small, wd, wc),
+                                 kernels.geometric_edge_map_plain(*small, wd,
+                                                                  wc))
+    log(f"  geometric_edge_map 120x160 synthetic scene: {small_agree}")
+    ms, ms_win, queued = time_ms(
+        lambda: kernels.geometric_edge_map(vmap, nmap, wd, wc), 50)
+    plain_ms, _, plain_queued = time_ms(
+        lambda: kernels.geometric_edge_map_plain(vmap, nmap, wd, wc), 3, 3)
+    rec = {"name": "geometric_edge_map", "route": "cuda",
+           "source": "maskfusion_tpu_torch/csrc/geometric_edge_map.cu",
+           "replaces": "maskfusion_tpu/ops/pallas_kernels.py:171",
+           "launches": 0, "max_abs_err": agree["max_abs_err"], "ms": ms,
+           "plain_ms": plain_ms, "library_ms": None, "ms_windows": ms_win,
+           "windows_queued": [queued, plain_queued],
+           "differing_fraction": agree["differing_fraction"],
+           **edge_bound(vmap)}
+    log(f"  geometric_edge_map: {ms * 1e3:.1f} us (plain {plain_ms:.2f} ms), "
+        f"bound {rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']}")
+    return rec
+
+
+def phase_multiobject(dev, kernels, MaskFusion, Config, Resolution,
+                      CameraIntrinsics, FrameData, frames, intr, n_warm,
+                      n_timed, n_stage):
+    import torch
+
+    W, H = 640, 480
+    engine = MaskFusion(Resolution(W, H), CameraIntrinsics(*intr),
+                        vga_multiobject_config(Config), device=dev)
+    fd = [FrameData(rgb=rgb, depth=d, mask=lab, class_ids=[0, 7, 8],
+                    timestamp=float(i))
+          for i, (rgb, d, lab) in enumerate(frames)]
+    n_main = n_warm + n_timed
+    n_models = []
+    # the main path: every launch count starts at 0 here
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    for f in fd[:n_warm]:
+        engine.process_frame(f)
+        n_models.append(len(engine.models))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t_start
+
+    t0 = time.perf_counter()
+    staged = engine.upload_frame(fd[n_warm])
+    for nxt in fd[n_warm + 1:n_main]:
+        nxt_staged = engine.upload_frame(nxt)
+        engine.process_frame(staged)
+        n_models.append(len(engine.models))
+        staged = nxt_staged
+    diag = engine.process_frame(staged)
+    n_models.append(len(engine.models))
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {k: getattr(kernels, k).launches for k in
+                ("bilateral_depth", "predict_l0_scan", "geometric_edge_map")}
+    fps = n_timed / total
+    log(f"  warm-up {n_warm} frames in {warm_s:.2f} s; timed {n_timed} "
+        f"frames in {total:.3f} s = {fps:.2f} FPS")
+    log(f"  models after each frame: {n_models}; last frame: {diag}")
+    log(f"  launches over the {n_main} main-path frames: {launches}")
+    if max(n_models) != 3:
+        raise AssertionError(f"the run never held 3 models: {n_models}")
+    # frame 1 initialises the global map: no tracking, no segmentation
+    want = {"bilateral_depth": n_main, "geometric_edge_map": n_main - 1,
+            "predict_l0_scan": n_main}
+    for name, count in launches.items():
+        if count < want[name]:
+            raise AssertionError(
+                f"{name} launched {count} times in {n_main} frames (at "
+                f"least {want[name]} expected)")
+    for k, m in enumerate(engine.models):
+        pose = m.pose_log[-1]["pose"].cpu().numpy()
+        if not np.isfinite(pose).all():
+            raise AssertionError(f"model {m.model_id}: non-finite pose")
+    counts = [m.surfel_count for m in engine.models]
+    if not all(c > 0 for c in counts):
+        raise AssertionError(f"an empty model map: {counts}")
+    log(f"  model ids {[m.model_id for m in engine.models]}, classes "
+        f"{[m.class_id for m in engine.models]}, surfels {counts}")
+    dev_ms, host_ms = stage_times(engine, fd[n_main:n_main + n_stage])
+    prof = profile_frames(engine, fd[n_main + n_stage:], 1000.0 / fps)
+    return {"fps": fps, "timed_s": total, "frames_timed": n_timed,
+            "stage_device_ms": dev_ms, "stage_host_ms": host_ms,
+            "launches": launches, "launches_per_frame": {
+                k: v / n_main for k, v in launches.items()},
+            "n_models": n_models, "surfels": counts, "profile": prof}
+
+
+def _object_offset(class_id: int, i: int) -> np.ndarray:
+    """synthetic_two_objects' motion of the object of `class_id` (7: patch
+    1, 8: patch 2) at frame i."""
+    if class_id == 7:
+        return np.array([0.006 * max(0, i - 1), 0.0, 0.0])
+    return np.array([0.0, -0.006 * max(0, i - 2), 0.0])
+
+
+def _run_records(step, frames):
+    """Per frame: model ids, class ids, logged poses and surfel counts."""
+    out = []
+    for i in frames:
+        eng = step(i)
+        out.append(([m.model_id for m in eng.models],
+                    [m.class_id for m in eng.models],
+                    [m.pose_log[-1]["pose"].cpu().numpy().astype(np.float64)
+                     for m in eng.models],
+                    [m.surfel_count for m in eng.models]))
+    return out
+
+
+def _motion_error(rec, i: int, spawn: dict) -> float:
+    """The largest object translation error of a frame record against the
+    scene's motion since the object's spawn frame."""
+    err = 0.0
+    for mid, cid, p in zip(rec[0][1:], rec[1][1:], rec[2][1:]):
+        true = _object_offset(cid, i) - _object_offset(cid, spawn[mid])
+        err = max(err, float(np.linalg.norm(p[:3, 3] - true)))
+    return err
+
+
+def _compare_runs(card, cpu, first_frame: int, spawn: dict):
+    """Per frame: model and class ids must agree (raises otherwise); the
+    global pose difference (m, deg), the largest object pose difference
+    (m), the largest relative surfel-count difference, and both runs'
+    object errors against the scene's motion (m)."""
+    rows = []
+    for i, (a, b) in enumerate(zip(card, cpu), start=first_frame):
+        if a[0] != b[0] or a[1] != b[1]:
+            raise AssertionError(f"frame {i}: models {a[0]}/{a[1]} on the "
+                                 f"card, {b[0]}/{b[1]} on the CPU")
+        pa, pb = a[2], b[2]
+        rows.append({
+            "frame": i,
+            "global_m": float(np.linalg.norm(pa[0][:3, 3] - pb[0][:3, 3])),
+            "global_deg": _rot_deg(pa[0], pb[0]),
+            "object_m": max((float(np.linalg.norm(x[:3, 3] - y[:3, 3]))
+                             for x, y in zip(pa[1:], pb[1:])), default=0.0),
+            "count_rel": max(abs(x - y) / max(y, 1)
+                             for x, y in zip(a[3], b[3])),
+            "truth_card_m": _motion_error(a, i, spawn),
+            "truth_cpu_m": _motion_error(b, i, spawn)})
+    return rows
+
+
+# tests/test_engine_multimodel.py:172-201 holds two runs of the JAX package
+# that round differently (batched and looped) to 8 mm over frames 0-4 of
+# this scene; past frame 4 an object's solve can turn such rounding into
+# centimetres (PERF.md, PR 3)
+OBJECT_HOLD_LAST_FRAME = 4
+
+
+def phase_multiobject_parity(dev, MaskFusion, Config, Resolution,
+                             CameraIntrinsics, FrameData):
+    """The two-object scene of tests/test_engine_multimodel.py through the
+    multi-object engine on the CPU, frames 0-6.  As the port's lockstep test
+    against the JAX engine, the card starts from the CPU engine's state after
+    both spawns (frames 0-2, carried by convert.engine_snapshot /
+    restore_engine) and runs frames 3-6.  Held on every frame: the same
+    model and class ids, the global pose within 1 mm / 0.05 deg.  Held up to
+    OBJECT_HOLD_LAST_FRAME: object poses within 8 mm, surfel counts within
+    1%.  Reported: the later frames, each run's object error against the
+    scene's motion, and a card run from frame 0."""
+    import torch
+
+    from maskfusion_tpu_torch.convert import engine_snapshot, restore_engine
+
+    frames = synthetic_two_objects(7)
+    fx, fy, cx, cy, w, h = SMALL
+    carry_at = 3
+
+    def engine(device):
+        return MaskFusion(
+            Resolution(w, h), CameraIntrinsics(fx, fy, cx, cy),
+            multiobject_config(Config, global_surfel_capacity=1 << 16,
+                               object_surfel_capacity=1 << 13,
+                               model_spawn_offset=0, use_so3=False,
+                               open_loop=True), device=device)
+
+    def stepper(eng):
+        def step(i):
+            rgb, depth, lab = frames[i]
+            eng.process_frame(FrameData(rgb=rgb, depth=depth, mask=lab,
+                                        class_ids=[0, 7, 8],
+                                        timestamp=float(i)))
+            return eng
+        return step
+
+    cpu_eng = engine(torch.device("cpu"))
+    cpu = _run_records(stepper(cpu_eng), range(carry_at))
+    snap = engine_snapshot(cpu_eng)
+    cpu += _run_records(stepper(cpu_eng), range(carry_at, len(frames)))
+    card_eng = engine(dev)
+    restore_engine(card_eng, snap)
+    carried = _run_records(stepper(card_eng), range(carry_at, len(frames)))
+    spawn = {}
+    for i, rec in enumerate(cpu):
+        for mid in rec[0]:
+            spawn.setdefault(mid, i)
+    rows = _compare_runs(carried, cpu[carry_at:], carry_at, spawn)
+    fresh = _run_records(stepper(engine(dev)), range(len(frames)))
+    fresh_rows = _compare_runs(fresh, cpu, 0, spawn)
+    log(f"  models per frame {[len(a[0]) for a in cpu]}, ids {cpu[-1][0]}; "
+        f"surfels after frame {len(frames) - 1}: CPU {cpu[-1][3]}, card "
+        f"(carried) {carried[-1][3]}, card (from frame 0) {fresh[-1][3]}")
+    for name, rs in (("carried after the spawns", rows),
+                     ("from frame 0", fresh_rows)):
+        log(f"  card vs CPU, {name}:")
+        for r in rs:
+            log(f"    frame {r['frame']}: global {r['global_m'] * 1e3:.4f} "
+                f"mm {r['global_deg']:.5f} deg; objects "
+                f"{r['object_m'] * 1e3:.3f} mm apart; counts "
+                f"{r['count_rel']:.2%} apart; object error against the "
+                f"motion {r['truth_card_m'] * 1e3:.2f} mm (card), "
+                f"{r['truth_cpu_m'] * 1e3:.2f} mm (CPU)")
+    if cpu[-1][0] != [0, 1, 2]:
+        raise AssertionError(f"expected models [0, 1, 2], got {cpu[-1][0]}")
+    for r in rows:
+        held = (r["global_m"] <= 1e-3 and r["global_deg"] <= 0.05)
+        if r["frame"] <= OBJECT_HOLD_LAST_FRAME:
+            held = held and r["object_m"] <= 8e-3 and r["count_rel"] <= 0.01
+        if not held:
+            raise AssertionError(f"card and CPU runs differ: {r}")
+    return {"carried": rows, "from_frame_0": fresh_rows}
 
 
 def main() -> int:
@@ -594,9 +1070,44 @@ def main() -> int:
     log("phase 4: 160x120 synthetic trajectory, card against CPU")
     parity = phase_parity(dev, MaskFusion, Config, Resolution,
                           CameraIntrinsics, FrameData)
+
+    # bench.py's two-object sequence spans 14 + 3 x 12 frames; the run
+    # takes its first 32
+    mo_warm, mo_timed, mo_stage, mo_prof = 14, 12, 4, 2
+    t_render = time.perf_counter()
+    mo_frames, intr = make_two_object_frames(
+        640, 480, 50, mo_warm + mo_timed + mo_stage + mo_prof)
+    log(f"phase 5: kernel 3 against its plain version at 640x480 "
+        f"({len(mo_frames)} two-object frames rendered in "
+        f"{time.perf_counter() - t_render:.1f} s)")
+    records.append(phase_edge_kernel(dev, kernels, MaskFusion, Config,
+                                     Resolution, CameraIntrinsics,
+                                     mo_frames[0], intr))
+
+    log("phase 6: the synchronous multi-object engine at 640x480, 2^22 + "
+        "2 x 2^19 surfels")
+    mo_run = phase_multiobject(dev, kernels, MaskFusion, Config, Resolution,
+                               CameraIntrinsics, FrameData, mo_frames, intr,
+                               mo_warm, mo_timed, mo_stage)
+    for rec in records:
+        rec["launches_by_path"] = {
+            "static": run["launches"].get(rec["name"], 0),
+            "multiobject": mo_run["launches"][rec["name"]]}
+        rec["launches"] = mo_run["launches"][rec["name"]]
+        log(f"  {rec['name']}: {rec['launches']} launches in the run "
+            f"({rec['launches'] / (mo_warm + mo_timed):.2f} a frame), "
+            f"{rec['ms'] * 1e3:.1f} us per launch against a bound of "
+            f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']})")
+
+    log("phase 7: 160x120 two-object scene, multi-object engine, card "
+        "against CPU")
+    mo_parity = phase_multiobject_parity(dev, MaskFusion, Config, Resolution,
+                                         CameraIntrinsics, FrameData)
     torch.cuda.synchronize()
     log(f"engine: {json.dumps({k: v for k, v in run.items()})}")
     log(f"parity: {json.dumps(parity)}")
+    log(f"multiobject: {json.dumps(mo_run)}")
+    log(f"multiobject parity: {json.dumps(mo_parity)}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

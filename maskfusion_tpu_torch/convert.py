@@ -1,24 +1,45 @@
 """Carry engine state across packages.
 
-The system has no weights: its state is the surfel map, the pose and the
-predictions.  A JAX ``MapState`` flattened to numpy arrays — the map's
-fields (pos, conf, color, init_time, last_seen, normal, radius, count) and
-the state's (pose, last_delta, pred_vmap, pred_nmap, pred_rgb,
-so3_intensity) under those names — becomes the port's ``MapState``.
+The system has no weights: its state is the surfel maps, the poses, the
+predictions and the engine's host bookkeeping.
+
+- `map_state_from_numpy`: a ``MapState`` flattened to numpy arrays — the
+  map's fields (pos, conf, color, init_time, last_seen, normal, radius,
+  count) and the state's (pose, last_delta, pred_vmap, pred_nmap, pred_rgb,
+  so3_intensity) under those names — becomes the port's ``MapState``.
+- `engine_snapshot` / `restore_engine`: a whole engine (every active and
+  inactive model's state and record, the frame counter, the id and spawn
+  counters, the last segmentation, the recent-spawn claims and the
+  segmenter's carried state) as plain numpy and Python values.  The snapshot
+  reads any engine with the JAX package's attribute names, arrays through
+  ``np.asarray``, so the port can start from the JAX engine's state and both
+  can then run in lockstep.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
-from maskfusion_tpu_torch.engine import MapState
+from maskfusion_tpu_torch.engine import MapState, MaskFusion, Model
 from maskfusion_tpu_torch.mapping.surfel_map import SurfelMap
 
 MAP_FIELDS = SurfelMap._fields
 STATE_FIELDS = tuple(f for f in MapState._fields if f != "map")
+# the Model record's fields that cross over (pose_log stays behind)
+MODEL_FIELDS = ("model_id", "class_id", "age", "unseen_count", "is_static",
+                "initial_c2w_inv", "conf_threshold", "max_depth",
+                "prev_pose", "last_bucket", "count_est", "fused_once")
+ENGINE_FIELDS = ("tick", "next_id", "spawn_offset", "lost")
+SEGMENTER_FIELDS = ("semantic_ignore", "_ignore_any", "label_to_model")
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def map_state_from_numpy(d: Dict[str, np.ndarray], device) -> MapState:
@@ -34,3 +55,69 @@ def map_state_from_numpy(d: Dict[str, np.ndarray], device) -> MapState:
                   count=t("count").to(torch.int32).reshape(()))
     return MapState(m, *(t(f) for f in STATE_FIELDS))
 
+
+def state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """A MapState of either package flattened to numpy arrays."""
+    flat = {k: _np(getattr(state.map, k)) for k in MAP_FIELDS}
+    flat.update({k: _np(getattr(state, k)) for k in STATE_FIELDS})
+    return flat
+
+
+def _model_snapshot(m) -> Dict[str, Any]:
+    rec = {k: getattr(m, k) for k in MODEL_FIELDS}
+    for k in ("initial_c2w_inv", "prev_pose"):
+        if rec[k] is not None:
+            rec[k] = _np(rec[k]).astype(np.float32)
+    rec["state"] = state_to_numpy(m.state)
+    return rec
+
+
+def engine_snapshot(engine) -> Dict[str, Any]:
+    """Everything a synchronous engine carries from frame to frame, as
+    numpy arrays and Python values."""
+    snap = {k: getattr(engine, k) for k in ENGINE_FIELDS}
+    seg = engine.last_segmentation
+    snap["last_segmentation"] = None if seg is None else np.array(seg)
+    snap["models"] = [_model_snapshot(m) for m in engine.models]
+    snap["inactive_models"] = [_model_snapshot(m)
+                               for m in engine.inactive_models]
+    snap["recent_spawns"] = [(int(e), int(r), np.array(mask))
+                             for e, r, mask in engine._recent_spawns]
+    snap["segmenter"] = {k: getattr(engine.segmenter, k)
+                         for k in SEGMENTER_FIELDS
+                         if hasattr(engine.segmenter, k)}
+    return snap
+
+
+def _model_from_snapshot(rec: Dict[str, Any], device) -> Model:
+    fields = {k: rec[k] for k in MODEL_FIELDS}
+    if fields["prev_pose"] is not None:
+        fields["prev_pose"] = torch.tensor(fields["prev_pose"],
+                                           device=device)
+    return Model(state=map_state_from_numpy(rec["state"], device), **fields)
+
+
+def restore_engine(engine: MaskFusion, snap: Dict[str, Any]) -> None:
+    """Put `snap` (from `engine_snapshot`) into the port's `engine`, as if
+    it had run the frames the snapshot's engine ran."""
+    dev = engine.device
+    for k in ENGINE_FIELDS:
+        setattr(engine, k, snap[k])
+    seg = snap["last_segmentation"]
+    engine.last_segmentation = None if seg is None else np.array(seg)
+    engine.models = [_model_from_snapshot(r, dev) for r in snap["models"]]
+    engine.inactive_models = [_model_from_snapshot(r, dev)
+                              for r in snap["inactive_models"]]
+    engine._recent_spawns = [(e, r, np.array(mask))
+                             for e, r, mask in snap["recent_spawns"]]
+    for k, v in snap["segmenter"].items():
+        if hasattr(engine.segmenter, k):
+            setattr(engine.segmenter, k,
+                    v.copy() if hasattr(v, "copy") else v)
+    if engine.models:
+        engine._last_count = engine.models[0].surfel_count
+    engine._frames_since_flush = 0
+
+
+__all__ = ["map_state_from_numpy", "state_to_numpy", "engine_snapshot",
+           "restore_engine"]

@@ -1,18 +1,30 @@
-"""The MaskFusion engine, -static slice.
+"""The MaskFusion engine: the -static frame and the synchronous
+multi-object frame.
 
-Port of the static-mode subset of ``maskfusion_tpu/engine.py`` (ref
-Core/MaskFusion.{h,cpp}): one global surfel map, and per frame
-preprocess -> track -> fuse -> clean -> predict (`fused_static_step`,
-engine.py:605-636 of the JAX package).  The multi-object path, ground-truth
-pose injection and relocalisation come with later slices; asking for them
-raises NotImplementedError.
+Port of ``maskfusion_tpu/engine.py`` (ref Core/MaskFusion.{h,cpp}):
+
+- ``Config(static_mode=True)``: one global surfel map, and per frame
+  preprocess -> track -> fuse -> clean -> predict (`fused_static_step`,
+  engine.py:605-636 of the JAX package).  No stage waits on the device;
+  diagnostics stay on it until `flush_diagnostics`.
+- ``Config(static_mode=False)``: the synchronous multi-object schedule
+  (engine.py:1236-1377): preprocess with the last segmentation, track the
+  global model then each object model, project all models' ids, segment
+  (edge map on the device, label rules on the host), spawn / inactivate
+  models, then fuse, clean and predict each model in turn.
+
+The pipelined multi-object schedule, the batched and windowed object passes,
+the Co-Fusion segmenter, redetection, relocalisation and ground-truth pose
+injection come with later slices; asking for them raises
+NotImplementedError.
 
 The JAX package jits each stage, donates the map buffers and prewarms its
 compile cache.  PyTorch runs eagerly, so none of that has a counterpart
-here: the map's buffers are updated in place instead of donated.  No stage
-waits on the device; diagnostics stay on it until `flush_diagnostics`.
+here: the map's buffers are updated in place instead of donated.
 
-Pose convention (as the reference): model 0's `pose` is camera->world.
+Pose conventions (as the reference): every model's `pose` is the camera
+pose in that model's frame; model 0's is camera->world, and an object's
+object->world pose is global_pose @ inverse(object_pose).
 """
 
 from __future__ import annotations
@@ -33,8 +45,15 @@ from maskfusion_tpu_torch.ops import fill_in as fill_ops
 from maskfusion_tpu_torch.ops import fuse as fuse_ops
 from maskfusion_tpu_torch.ops import preprocess as pp
 from maskfusion_tpu_torch.ops import splat as splat_ops
+from maskfusion_tpu_torch.segmentation import create_segmenter
+from maskfusion_tpu_torch.segmentation.mf_segmentation import ModelInfo
 from maskfusion_tpu_torch.tracking import odometry as odo
 from maskfusion_tpu_torch.utils.tuning import get_tuning
+
+# Model ids are uint8 mask labels.  255 is the semantic-ignore label and 254
+# the JAX package's dead padding-slot sentinel of its batched object passes;
+# id assignment skips both, so neither ever names a live model.
+DEAD_SLOT_ID = 254
 
 
 class MapState(NamedTuple):
@@ -72,9 +91,18 @@ class Model:
     """Host-side model record (Model.h:240-320)."""
     model_id: int
     state: MapState
+    class_id: int = -1
     age: int = 0
+    unseen_count: int = 0
+    is_static: bool = True
+    initial_c2w_inv: Optional[np.ndarray] = None
+    conf_threshold: float = 10.0
+    max_depth: float = 100.0
+    prev_pose: Optional[torch.Tensor] = None   # pose before this frame's track
     pose_log: List = dataclasses.field(default_factory=list)
     last_bucket: int = 0      # shrink-hysteresis input for choose_bucket
+    count_est: int = -1       # last fetched surfel count (-1: unknown)
+    fused_once: bool = False  # first-fuse weight boost applied yet?
 
     @property
     def surfel_count(self) -> int:
@@ -92,34 +120,82 @@ def _host_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def _object_window(cfg: Config, H: int, W: int) -> int:
+    """The JAX package's static object-window size (0: windowing off),
+    engine.py:663-667."""
+    ow = int(cfg.object_window)
+    return 0 if ow <= 0 or ow > min(H, W) or ow % 8 else ow
+
+
+def _check_supported(cfg: Config, H: int, W: int) -> None:
+    """Raise NotImplementedError for what the port does not run yet, naming
+    the ROADMAP item that brings it."""
+    if cfg.relocalisation or cfg.close_loops:
+        raise NotImplementedError(
+            "relocalisation and loop closure are not ported yet (ROADMAP "
+            "queue 1 item 12)")
+    if cfg.static_mode:
+        return
+    if cfg.seg_method in ("cofusion", "co_fusion"):
+        raise NotImplementedError(
+            "seg_method='cofusion' is not ported yet (ROADMAP queue 1 item "
+            "11)")
+    # the JAX engine runs its pipelined schedule only with a device edge
+    # map, i.e. for the maskfusion segmenter (engine.py:1149-1153)
+    if cfg.pipelined_multiobject and cfg.seg_method in ("maskfusion",
+                                                        "mask_fusion"):
+        raise NotImplementedError(
+            "pipelined_multiobject=True: the pipelined and prefused "
+            "multi-object schedules are not ported yet (ROADMAP queue 1 "
+            "item 9); pass pipelined_multiobject=False for the synchronous "
+            "schedule")
+    if cfg.batch_object_tracking and _object_window(cfg, H, W):
+        raise NotImplementedError(
+            "batch_object_tracking=True with an object window: the "
+            "windowed fused object stage is not ported yet (ROADMAP queue 1 "
+            "item 8); pass batch_object_tracking=False or object_window=0")
+    if cfg.enable_redetection:
+        raise NotImplementedError(
+            "enable_redetection: model redetection needs the fern model "
+            "matcher, ported with relocalisation (ROADMAP queue 1 item 12)")
+
+
 class MaskFusion:
     """Host-side engine with the public surface of the JAX package's
-    MaskFusion, for Config(static_mode=True)."""
+    MaskFusion, for the -static and the synchronous multi-object frame."""
 
     def __init__(self, resolution: Resolution, intr: CameraIntrinsics,
                  config: Optional[Config] = None, device=None):
         self.res = resolution
         self.intr = intr
         self.cfg = config or Config()
-        if not self.cfg.static_mode:
-            raise NotImplementedError(
-                "the PyTorch port runs Config(static_mode=True) only; the "
-                "multi-object path comes with the multi-object slice")
-        if self.cfg.relocalisation or self.cfg.close_loops:
-            raise NotImplementedError(
-                "relocalisation and loop closure are not ported yet")
+        H, W = resolution.height, resolution.width
+        _check_supported(self.cfg, H, W)
         self.device = torch.device(device) if device is not None \
             else default_device()
         self._tuning = get_tuning(self.device)
         self.DIAG_INTERVAL = self._tuning.diag_interval
         self.tick = 0
-        self.models: List[Model] = []
+        self.models: List[Model] = []          # [0] = global model
+        self.inactive_models: List[Model] = []
+        self.next_id = 1
+        self.spawn_offset = self.cfg.model_spawn_offset
+        self.last_segmentation: Optional[np.ndarray] = None
+        self.lost = False
+        self.new_model_listeners: List[Callable] = []
+        self.inactive_model_listeners: List[Callable] = []
+        # (expiry tick, model id, spawn mask): phantom re-spawn claims, see
+        # _segment_and_update_models
+        self._recent_spawns: List = []
+        self.segmenter = None
+        if not self.cfg.static_mode:
+            self.segmenter = create_segmenter(self.cfg.seg_method, self.cfg,
+                                              resolution, intr)
         self._last_count = 0
         # bucket sizing works from a count ESTIMATE refreshed every
         # DIAG_INTERVAL frames, extrapolated with the observed append rate
         self._frames_since_flush = 0
         self._append_rate = 8192.0
-        H, W = resolution.height, resolution.width
         self._cov_thresh = 1e-4 * max(1.0, (640.0 * 480.0) / (W * H))
         self._last_tracking_ok = True
         self._pending_diag = None
@@ -132,8 +208,8 @@ class MaskFusion:
                                            * bl_scale)))
         self._bl_sigma_space = 0.024691358 / (bl_scale * bl_scale)
         # optional stage instrumentation: called with a stage name at each
-        # stage boundary of fused_static_step (chip_smoke.py records CUDA
-        # events there); None costs nothing
+        # stage boundary of a frame (chip_smoke.py records CUDA events
+        # there); None costs nothing
         self.stage_hook: Optional[Callable[[str], None]] = None
 
     def _mark(self, name: str) -> None:
@@ -162,19 +238,28 @@ class MaskFusion:
         vmap_raw = pp.create_vmap(depth, self.intr, cfg.depth_cutoff)
         return Preprocessed(filt, gray, levels, frame_pyr, vmap_raw)
 
-    def track(self, state: MapState, prep: Preprocessed,
-              mask_id: int = 0) -> TrackResult:
-        """engine.py:272-316 of the JAX package (global model)."""
+    def track(self, state: MapState, prep: Preprocessed, mask_id: int = 0,
+              is_object: bool = False,
+              warm: Optional[torch.Tensor] = None) -> TrackResult:
+        """engine.py:272-316 of the JAX package.  An object model
+        (`is_object`) tracks with the object weights and damping; `warm`,
+        the camera's world motion from the global track, starts its solve
+        from "world-static" (Config.object_warm_start)."""
         cfg = self.cfg
+        pose0 = state.pose if warm is None else state.pose @ warm
         model_pyr = odo.build_model_pyramids(
             state.pred_vmap, state.pred_nmap, state.pred_rgb, state.pose,
             cfg.num_pyr_levels, cfg.max_depth_rgb)
         so3_pyr = [None] * cfg.num_pyr_levels
         so3_pyr[-1] = state.so3_intensity
         res = odo.get_incremental_transformation(
-            state.pose[:3, 3], state.pose[:3, :3], prep.frame_pyr, model_pyr,
+            pose0[:3, 3], pose0[:3, :3], prep.frame_pyr, model_pyr,
             tuple(so3_pyr), self.intr,
-            rgb_only=cfg.rgb_only, icp_weight=cfg.icp_weight,
+            rgb_only=cfg.rgb_only,
+            icp_weight=(cfg.object_icp_weight if is_object
+                        else cfg.icp_weight),
+            gn_damping=(cfg.object_gn_damping if is_object else 0.0),
+            rgb_finest_only=(is_object and cfg.object_rgb_finest_only),
             pyramid=cfg.pyramid, fast_odom=cfg.fast_odom,
             use_so3=cfg.use_so3, mask_id=mask_id,
             use_mask_rgb=cfg.mask_rgb_residual,
@@ -195,13 +280,16 @@ class MaskFusion:
             cov_diag=torch.diagonal(odo.covariance(res.A)))
 
     def init_map(self, prep: Preprocessed, rgb, seg_mask, mask_id: int,
-                 pose: torch.Tensor, time: float, capacity: int) -> MapState:
-        """engine.py:843-864 of the JAX package."""
+                 pose: torch.Tensor, time: float, capacity: int,
+                 weighting: float = 1.0) -> MapState:
+        """engine.py:843-864 of the JAX package.  A spawned object starts
+        with `weighting` 100, the first-fuse boost."""
         H, W = self.res.height, self.res.width
         cutoff = self.cfg.depth_cutoff
         m = sm.init_from_frame(capacity, prep.vmap_raw,
                                prep.levels[0]["vmap"], prep.levels[0]["nmap"],
-                               rgb, seg_mask, mask_id, pose, self.intr, time)
+                               rgb, seg_mask, mask_id, pose, self.intr, time,
+                               weighting)
         im = splat_ops.render_index_map(
             m, se3.pose_inverse(pose), self.intr, H, W, time,
             self.cfg.effective_time_delta(), cutoff)
@@ -319,6 +407,236 @@ class MaskFusion:
             removed.to(torch.float32), appended.to(torch.float32)])
         return new_state, diag, tr.pose.clone()
 
+    def project_ids(self, m: sm.SurfelMap, pose: torch.Tensor, time: float,
+                    max_depth: float, bucket: int) -> torch.Tensor:
+        """One model's depth in the global (depth, id) projection, +inf
+        where it shows nothing (GlobalProjection::project, confidence 12
+        hardcoded at GlobalProjection.cpp:61; engine.py:791-802 of the JAX
+        package)."""
+        H, W = self.res.height, self.res.width
+        im = splat_ops.render_index_map(
+            sm.prefix_view(m, bucket), se3.pose_inverse(pose), self.intr, H,
+            W, time, self.cfg.effective_time_delta(), max_depth,
+            conf_threshold=12.0)
+        pred = splat_ops.combined_predict(im, self.intr, max_depth)
+        return torch.where(pred.depth > 0, pred.depth, float("inf"))
+
+    @staticmethod
+    def combine_ids(depths: List[torch.Tensor],
+                    ids_vec: torch.Tensor) -> torch.Tensor:
+        """argmin over the models' depths -> (H, W) uint8 id image, 0 where
+        no model shows (engine.py:832-839 of the JAX package)."""
+        stack = torch.stack(depths)
+        nearest, arg = stack.min(0)
+        return torch.where(torch.isfinite(nearest), ids_vec[arg],
+                           0).to(torch.uint8)
+
+    def erase_error(self, m: sm.SurfelMap, seg_mask: torch.Tensor,
+                    mask_id: int, depth: torch.Tensor, pose: torch.Tensor,
+                    bucket: int):
+        """Spawn subtraction on the global map (eraseErrorGeometry,
+        MaskFusion.cpp:355-358; engine.py:818-827 of the JAX package)."""
+        out, removed = clean_ops.erase_error_geometry(
+            sm.prefix_view(m, bucket), seg_mask, mask_id, depth,
+            se3.pose_inverse(pose), self.intr,
+            self.cfg.spawn_subtraction_window)
+        return sm.write_back(m, out), removed
+
+    # ------------------------------------------------------------ lifecycle
+    def _get_next_model_id(self, assign: bool) -> int:
+        """The next free uint8 model id; ids 254 and 255 are never handed
+        out (engine.py:1058-1075 of the JAX package)."""
+        nxt = self.next_id
+        if assign:
+            if len(self.models) >= self.cfg.max_models:
+                raise RuntimeError("maximum number of models (256) in use")
+            used = {m.model_id for m in self.models}
+            if self.cfg.keep_all_models:
+                # a kept inactive model's id stays reserved
+                used |= {m.model_id for m in self.inactive_models}
+            while True:
+                self.next_id = (self.next_id + 1) % 256 or 1
+                if self.next_id not in used and self.next_id < DEAD_SLOT_ID:
+                    break
+        return nxt
+
+    def _inactivate_model(self, model: Model, reason: str) -> None:
+        """Smart delete (MaskFusion::inactivateModel, :699-713): a model
+        with enough confident surfels is kept as inactive."""
+        keep = self.cfg.keep_all_models or (
+            model.surfel_count >= self.cfg.min_surfels_keep
+            and model.conf_threshold > self.cfg.min_conf_keep)
+        if keep:
+            self.inactive_models.append(model)
+        for cb in self.inactive_model_listeners:
+            cb(model)
+        self.models.remove(model)
+
+    def _bucket_for(self, model: Model) -> int:
+        """A model's per-frame processing bucket: pow2 steps, with the
+        object floor and headroom for object models (engine.py:1388-1416
+        of the JAX package).  The count is fetched from the device."""
+        tun = self._tuning
+        if model.model_id == 0:
+            minimum, headroom = tun.min_bucket_global, tun.headroom_global
+        else:
+            minimum, headroom = tun.min_bucket_object, tun.headroom_object
+        count = model.surfel_count
+        model.count_est = count
+        b = sm.choose_bucket(count, model.state.map.capacity,
+                             headroom=headroom, minimum=minimum,
+                             current=model.last_bucket, pow2_steps=True)
+        model.last_bucket = b
+        return b
+
+    def _project_ids_all(self, time: float) -> torch.Tensor:
+        """All models' (depth, id) projections combined into one uint8 id
+        image on the device (GlobalProjection.cpp:48-75).  Every model
+        renders with the global depth cutoff (GlobalProjection.cpp:60)."""
+        cutoff = self.cfg.depth_cutoff
+        depths = [self.project_ids(m.state.map, m.state.pose, time, cutoff,
+                                   bucket=self._bucket_for(m))
+                  for m in self.models]
+        ids_vec = torch.tensor([m.model_id for m in self.models],
+                               dtype=torch.int32, device=self.device)
+        return self.combine_ids(depths, ids_vec)
+
+    def _segment_and_update_models(self, frame: FrameData, prep, rgb,
+                                   ids: np.ndarray) -> np.ndarray:
+        """Host segmentation + model lifecycle for one frame
+        (MaskFusion.cpp:289-374; engine.py:1623-1804 of the JAX package):
+        segmenter, phantom re-spawn claims, spawning (with optional spawn
+        subtraction), per-model maxDepth / confidence ramp.  Returns the full
+        segmentation mask."""
+        cfg = self.cfg
+        glob = self.models[0]
+        tick = self.tick
+        if self.spawn_offset < cfg.model_spawn_offset:
+            self.spawn_offset += 1
+        allow_new = (
+            self.spawn_offset >= cfg.model_spawn_offset
+            and len(self.models) < cfg.max_active_models
+            and (cfg.mask_cutoff_frame is None
+                 or tick <= cfg.mask_cutoff_frame))
+        infos = [ModelInfo(m.model_id, m.class_id) for m in self.models]
+        vmap, nmap = prep.levels[0]["vmap"], prep.levels[0]["nmap"]
+        kw = {}
+        if hasattr(self.segmenter, "edge_binary"):
+            # the device part: edge map (kernel 3) -> non-edge binary
+            kw["nonedge"] = self.segmenter.edge_binary(vmap, nmap)[1].cpu()
+            self._mark("segment_device")
+        seg_result = self.segmenter.perform(
+            frame, vmap, nmap, ids, infos, self._get_next_model_id(False),
+            allow_new, **kw)
+        self._mark("segment_host")
+        seg_mask_np = seg_result.full_segmentation
+        self.last_segmentation = seg_mask_np
+
+        # -------- claim phantom re-spawns --------
+        # a would-be-new component that overlaps a recently spawned model's
+        # spawn-time mask IS that model: remap the label instead of
+        # spawning (engine.py:1654-1692 of the JAX package)
+        if seg_result.has_new_label and self._recent_spawns:
+            md = seg_result.model_data[-1]
+            sel = seg_result.full_segmentation == md.model_id
+            sel_n = int(np.count_nonzero(sel))
+            live_ids = {m.model_id for m in self.models}
+            claimed = None
+            for exp_tick, rid, rmask in self._recent_spawns:
+                if tick > exp_tick or rid not in live_ids:
+                    continue
+                inter = int(np.count_nonzero(sel & rmask))
+                if (inter > 0.3 * max(sel_n, 1)
+                        or inter > 0.3 * max(int(np.count_nonzero(rmask)),
+                                             1)):
+                    claimed = rid
+                    break
+            if claimed is not None:
+                seg_result.full_segmentation = np.where(
+                    sel, claimed,
+                    seg_result.full_segmentation).astype(np.uint8)
+                seg_mask_np = seg_result.full_segmentation
+                self.last_segmentation = seg_mask_np
+                if hasattr(self.segmenter, "remap_new_label"):
+                    self.segmenter.remap_new_label(md.model_id, claimed)
+                seg_result.has_new_label = False
+                nd = seg_result.model_data.pop()
+                cd = seg_result.data_for(claimed)
+                if cd is not None:
+                    cd.is_empty = False
+                    cd.pixel_count = nd.pixel_count
+        self._recent_spawns = [
+            (e, r, m) for (e, r, m) in self._recent_spawns if tick <= e]
+
+        # -------- spawn a new model (:314-332) --------
+        if seg_result.has_new_label:
+            new_id = self._get_next_model_id(True)
+            md = seg_result.model_data[-1]
+            # the newborn starts at the camera pose, initialised from the
+            # spawn frame's masked pixels with the first-fuse weight 100
+            gp = glob.state.pose
+            seg_dev = torch.from_numpy(seg_mask_np).to(self.device)
+            new_state = self.init_map(
+                prep, rgb, seg_dev, new_id, gp.clone(), float(tick),
+                cfg.object_surfel_capacity, weighting=100.0)
+            new_model = Model(
+                model_id=new_id, state=new_state, class_id=md.class_id,
+                conf_threshold=cfg.conf_threshold_object,
+                max_depth=md.depth_mean + 1.2 * md.depth_std,
+                is_static=True,
+                initial_c2w_inv=np.eye(4, dtype=np.float32),
+                count_est=int(md.pixel_count or 0))
+            new_model.prev_pose = gp.clone()
+            self.models.append(new_model)
+            for cb in self.new_model_listeners:
+                cb(new_model)
+            self.spawn_offset = 0
+            self._recent_spawns.append(
+                (tick + int(cfg.pipeline_depth) + 2, new_id,
+                 seg_mask_np == new_id))
+            if cfg.spawn_subtraction:
+                gmap, _erased = self.erase_error(
+                    glob.state.map, seg_dev, new_id, prep.filt_depth, gp,
+                    bucket=self._bucket_for(glob))
+                glob.state = glob.state._replace(map=gmap)
+
+        # per-model maxDepth + confidence ramp (:334-374)
+        for model in self.models[1:]:
+            md = seg_result.data_for(model.model_id)
+            if md is not None and not md.is_empty:
+                model.max_depth = md.depth_mean + 1.2 * md.depth_std
+                model.unseen_count = 0
+            else:
+                model.unseen_count += 1
+            model.conf_threshold = min(4.5, model.age / 25.0)
+        return seg_mask_np
+
+    def _dispatch_fuse(self, prep, rgb, seg_mask_np: np.ndarray, tick: int,
+                       do_fuse: bool) -> None:
+        """fuse + clean + predict for every model in turn
+        (MaskFusion.cpp:539-569; the loop of engine.py:1869-1911 of the JAX
+        package).  Objects never fill in, and a model's first fuse weighs
+        100."""
+        cfg = self.cfg
+        if not do_fuse:
+            return
+        seg_mask = torch.from_numpy(seg_mask_np).to(self.device)
+        parity = tick % 2 if cfg.fuse_subsample_checkerboard else None
+        for model in list(self.models):
+            is_glob = model.model_id == 0
+            wm = (100.0 if not model.fused_once and not is_glob
+                  else cfg.weight_multiplier)
+            conf_t = (cfg.conf_threshold_global if is_glob
+                      else model.conf_threshold)
+            max_d = (cfg.depth_cutoff if is_glob
+                     else min(cfg.depth_cutoff, model.max_depth))
+            model.state, _removed, _appended = self.fuse_clean_predict(
+                model.state, prep, rgb, seg_mask, model.prev_pose,
+                float(tick), model.model_id, float(conf_t), float(max_d),
+                float(wm), allow_fill_in=is_glob,
+                bucket=self._bucket_for(model), parity=parity)
+            model.fused_once = True
+
     # --------------------------------------------------------- frame API
     def upload_frame(self, frame: FrameData) -> FrameData:
         """Stage a frame's images in device memory: a pinned host copy and
@@ -344,10 +662,18 @@ class MaskFusion:
         """Start the engine from a given global-model state (e.g. one
         carried over from the JAX engine by convert.map_state_from_numpy),
         as if `tick` frames had been processed."""
-        self.models = [Model(model_id=0, state=state)]
+        self.models = [Model(model_id=0, state=state,
+                             conf_threshold=self.cfg.conf_threshold_global,
+                             max_depth=self.cfg.depth_cutoff,
+                             is_static=False)]
         self.tick = tick
         self._last_count = self.models[0].surfel_count
         self._frames_since_flush = 0
+
+    def _prev_seg(self) -> torch.Tensor:
+        if self.last_segmentation is None:
+            return self._zero_mask
+        return torch.from_numpy(self.last_segmentation).to(self.device)
 
     def process_frame(self, frame: FrameData,
                       gt_pose: Optional[np.ndarray] = None) -> Dict:
@@ -355,21 +681,28 @@ class MaskFusion:
         cfg = self.cfg
         rgb, depth = self._device_frame(frame)
         if not self.models:
-            prep = self.preprocess(rgb, depth, self._zero_mask)
+            prev_seg = self._prev_seg()
+            prep = self.preprocess(rgb, depth, prev_seg)
             pose0 = torch.as_tensor(
                 (gt_pose if gt_pose is not None else np.eye(4))
                 .astype(np.float32), device=self.device)
-            state = self.init_map(prep, rgb, self._zero_mask, 0, pose0,
+            state = self.init_map(prep, rgb, prev_seg, 0, pose0,
                                   float(self.tick),
                                   cfg.global_surfel_capacity)
-            self.models.append(Model(model_id=0, state=state))
+            self.models.append(Model(
+                model_id=0, state=state,
+                conf_threshold=cfg.conf_threshold_global,
+                max_depth=cfg.depth_cutoff, is_static=False))
             self._last_count = self.models[0].surfel_count
             self._log_poses(frame)
             return {"tick": self.tick, "surfels": self._last_count,
                     "tracking_ok": True, "n_models": 1}
         if gt_pose is not None:
             raise NotImplementedError(
-                "ground-truth pose injection is not ported yet")
+                "ground-truth pose injection is not ported yet (ROADMAP "
+                "queue 1 item 7)")
+        if not cfg.static_mode:
+            return self._multiobject_step(frame, rgb, depth)
 
         # -static fast path: one step, no per-frame host sync
         glob = self.models[0]
@@ -397,10 +730,73 @@ class MaskFusion:
             out.update(self.flush_diagnostics())
         return out
 
+    def _multiobject_step(self, frame: FrameData, rgb, depth) -> Dict:
+        """The synchronous multi-object frame (engine.py:1154-1165,
+        1236-1377 of the JAX package)."""
+        cfg = self.cfg
+        self._mark("start")
+        prep = self.preprocess(rgb, depth, self._prev_seg())
+        self._mark("preprocess")
+
+        # ---------------- tracking (MaskFusion.cpp:240-278) ----------------
+        diag: Dict = {"tick": self.tick}
+        glob = self.models[0]
+        for model in self.models:
+            model.prev_pose = model.state.pose
+        glob_prev_pose = glob.state.pose
+        tr = self.track(glob.state, prep, 0)
+        glob.state = glob.state._replace(pose=tr.pose)
+        warm = (se3.pose_inverse(glob_prev_pose) @ tr.pose
+                if cfg.object_warm_start else None)
+        cov_max, icp_error, icp_count = torch.stack(
+            [tr.cov_diag.max(), tr.icp_error, tr.icp_count]).tolist()
+        tracking_ok = cov_max <= self._cov_thresh
+        diag.update(icp_error=icp_error, icp_count=icp_count)
+
+        trackable = cfg.trackable_classes
+        jumps = []
+        for model in list(self.models[1:]):
+            if trackable and model.class_id not in trackable:
+                # an untracked object mirrors the camera (Model.h:263-268)
+                model.state = model.state._replace(pose=torch.as_tensor(
+                    model.initial_c2w_inv, device=self.device) @ tr.pose)
+                continue
+            trm = self.track(model.state, prep, model.model_id,
+                             is_object=True, warm=warm)
+            model.state = model.state._replace(pose=trm.pose)
+            jumps.append((model, torch.linalg.vector_norm(trm.delta[:3, 3])))
+        if jumps:
+            # one host sync for all jump checks (MaskFusion.cpp:267-272)
+            norms = torch.stack([j for _, j in jumps]).tolist()
+            for (model, _), jump in zip(jumps, norms):
+                if jump > cfg.model_deactivate_jump:
+                    self._inactivate_model(model, "movement")
+        self._mark("track")
+
+        # -------- global projection + segmentation (:289-296) --------
+        ids = self._project_ids_all(float(self.tick)).cpu().numpy()
+        self._mark("project")
+        seg_mask_np = self._segment_and_update_models(frame, prep, rgb, ids)
+        self._mark("lifecycle")
+
+        # ---------------- fuse / clean / predict (:539-569) ----------------
+        do_fuse = tracking_ok and not self.lost and not cfg.rgb_only
+        self._dispatch_fuse(prep, rgb, seg_mask_np, self.tick, do_fuse)
+        self._mark("fuse")
+
+        self._log_poses(frame)
+        for model in self.models:
+            model.age += 1
+        diag.update(surfels=glob.surfel_count, n_models=len(self.models),
+                    model_ids=[m.model_id for m in self.models],
+                    tracking_ok=tracking_ok, lost=self.lost)
+        return diag
+
     def flush_diagnostics(self) -> Dict:
-        """Fetch the most recent step's diagnostics (one device->host copy)
-        and refresh the bucket estimate (engine.py:2433-2462 of the JAX
-        package)."""
+        """Fetch the most recent -static step's diagnostics (one
+        device->host copy) and refresh the bucket estimate (engine.py:
+        2433-2462 of the JAX package).  The multi-object frame returns its
+        diagnostics directly and leaves nothing pending."""
         if self._pending_diag is None:
             return {}
         (icp_err, icp_cnt, rgb_cnt, cov_max, count, removed,
@@ -423,11 +819,16 @@ class MaskFusion:
                 "tracking_ok": self._last_tracking_ok}
 
     def _log_poses(self, frame: FrameData) -> None:
-        """TUM-convention pose log entries hold device tensors (copies);
-        exporters convert lazily."""
-        self.models[0].pose_log.append({
-            "timestamp": frame.timestamp or float(self.tick),
-            "tick": self.tick, "pose": self.models[0].state.pose.clone()})
+        """TUM-convention pose log entries (MaskFusion.cpp:578-602) hold
+        device tensors; exporters convert lazily.  An object's logged pose
+        is object->world = global_pose @ inverse(object_pose)."""
+        glob_pose = self.models[0].state.pose
+        for i, model in enumerate(self.models):
+            pose = (glob_pose.clone() if i == 0
+                    else glob_pose @ se3.pose_inverse(model.state.pose))
+            model.pose_log.append({
+                "timestamp": frame.timestamp or float(self.tick),
+                "tick": self.tick, "pose": pose})
 
     # ----------------------------------------------------------- exports
     @property
@@ -438,9 +839,13 @@ class MaskFusion:
     def current_pose(self) -> np.ndarray:
         return self.models[0].state.pose.cpu().numpy()
 
-    def pose_log_numpy(self) -> List[np.ndarray]:
-        """The global model's logged poses as host arrays."""
-        return [e["pose"].cpu().numpy() for e in self.models[0].pose_log]
+    def pose_log_numpy(self, model_index: int = 0) -> List[np.ndarray]:
+        """A model's logged poses as host arrays."""
+        return [e["pose"].cpu().numpy()
+                for e in self.models[model_index].pose_log]
 
     def download_map(self, model_index: int = 0):
         return sm.download(self.models[model_index].state.map)
+
+    def all_models(self) -> List[Model]:
+        return self.models + self.inactive_models

@@ -4,7 +4,8 @@ Port of ``maskfusion_tpu/ops/clean.py`` (ref copy_unstable.vert:53-160 +
 Model::clean, Model.cpp:649-772).  Every surfel is tested against the
 post-fuse index map and the current frame, penalised where the frame's mask
 disagrees with its model, and survivors are kept — stream-compacted, or
-killed in place with `compact=False`.
+killed in place with `compact=False`.  `erase_error_geometry` is the spawn
+subtraction that carves a new object's surface out of the global map.
 
 The JAX package packs the 3x3 index-map neighbourhood into an f16 hi/lo
 table because TPU row gathers scale with row bytes.  The port gathers the
@@ -136,3 +137,32 @@ def clean(m: SurfelMap, index_map: IndexMap, depth_input, mask, mask_id,
     )
     return CleanResult(map=out, removed=kill.sum(dtype=torch.int32),
                        keep=keep, conf=conf, last_seen=last_seen)
+
+
+def erase_error_geometry(m: SurfelMap, mask: torch.Tensor, mask_id,
+                         depth_input: torch.Tensor, pose_inv: torch.Tensor,
+                         intr: CameraIntrinsics, depth_window: float = 0.05):
+    """Spawn subtraction (Model::eraseErrorGeometry, Model.cpp:774-887; call
+    site MaskFusion.cpp:355-358): remove from the global map the surfels
+    that project into the freshly spawned object's mask at a depth within
+    `depth_window` of the frame's (maskfusion_tpu/ops/clean.py:264-299).
+    Returns (carved map, removed count)."""
+    H, W = depth_input.shape
+    R = pose_inv[:3, :3]
+    lp = m.pos @ R.T + pose_inv[:3, 3]
+    lz = lp[:, 2]
+    safe_z = torch.where(lz != 0, lz, 1.0)
+    x = intr.fx * lp[:, 0] / safe_z + intr.cx
+    y = intr.fy * lp[:, 1] / safe_z + intr.cy
+    # out-of-view (or non-finite) coordinates are masked by in_view; they
+    # are clamped only to stay valid gather indices
+    xi = torch.round(torch.nan_to_num(x)).clamp(0, W - 1).long()
+    yi = torch.round(torch.nan_to_num(y)).clamp(0, H - 1).long()
+    in_view = (lz > 0) & (x >= 0) & (y >= 0) & (x < W) & (y < H)
+    lin = yi * W + xi
+    d = depth_input.reshape(-1)[lin]
+    on_object = in_view & (mask.reshape(-1)[lin].to(torch.int32)
+                           == int(mask_id))
+    erase = on_object & (d > 0) & ((lz - d).abs() < depth_window)
+    out = sm.compact_self(m, m.slot_mask() & ~erase)
+    return out, m.count - out.count

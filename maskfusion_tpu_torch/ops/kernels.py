@@ -1,14 +1,20 @@
 """The port's hand-written Hopper kernels, their plain PyTorch versions and
 the build.
 
-Two kernels of the JAX package's Pallas set are on the -static path:
+One kernel for each of the JAX package's three Pallas kernels:
 
-  bilateral_depth   csrc/bilateral_depth.cu — replaces
-                    maskfusion_tpu/ops/pallas_kernels.py:121-161
-                    (bilateral_filter_depth_pallas)
-  predict_l0_scan   csrc/predict_l0_scan.cu — replaces
-                    maskfusion_tpu/ops/pallas_kernels.py:230-338
-                    (predict_l0_scan_pallas)
+  bilateral_depth     csrc/bilateral_depth.cu — replaces
+                      maskfusion_tpu/ops/pallas_kernels.py:121-161
+                      (bilateral_filter_depth_pallas)
+  predict_l0_scan     csrc/predict_l0_scan.cu — replaces
+                      maskfusion_tpu/ops/pallas_kernels.py:230-338
+                      (predict_l0_scan_pallas)
+  geometric_edge_map  csrc/geometric_edge_map.cu — replaces
+                      maskfusion_tpu/ops/pallas_kernels.py:171-223
+                      (geometric_edge_map_pallas)
+
+The first two run on the -static and the multi-object frame, the third on
+the multi-object frame's segmentation.
 
 Each source note says what bounds the kernel on the card and what its design
 does about it.  Each public wrapper launches its CUDA kernel for a CUDA
@@ -115,6 +121,8 @@ def load_library() -> ctypes.CDLL:
         lib.mft_predict_l0_scan.argtypes = [P, P, P, P, P, P, I, I, I,
                                             F, F, F, F, F, P]
         lib.mft_predict_l0_scan.restype = I
+        lib.mft_geometric_edge_map.argtypes = [P, P, P, I, I, F, F, P]
+        lib.mft_geometric_edge_map.restype = I
         _lib = lib
     return _lib
 
@@ -143,6 +151,7 @@ def _raise_on(err: int, what: str) -> None:
 def reset_launch_counts() -> None:
     bilateral_depth.launches = 0
     predict_l0_scan.launches = 0
+    geometric_edge_map.launches = 0
 
 
 def shift(img: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
@@ -280,6 +289,63 @@ def predict_l0_scan(pos: torch.Tensor, normal: torch.Tensor,
     _raise_on(err, "predict_l0_scan")
     predict_l0_scan.launches += 1
     return best_z, best_src
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: geometric edge map of the segmentation
+# ---------------------------------------------------------------------------
+
+_OFFS8 = [(-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1)]
+
+
+def geometric_edge_map_plain(vmap: torch.Tensor, nmap: torch.Tensor,
+                             weight_distance: float,
+                             weight_concavity: float) -> torch.Tensor:
+    """Plain PyTorch version: the 8-neighbour tap loop of
+    maskfusion_tpu/ops/seg_ops.py:30-67."""
+    H, W = vmap.shape[:2]
+    dev = vmap.device
+    nan = float("nan")
+    c_term = torch.zeros((H, W), dtype=torch.float32, device=dev)
+    d_term = torch.zeros((H, W), dtype=torch.float32, device=dev)
+    for dy, dx in _OFFS8:
+        v_n = shift(vmap, dy, dx, nan)
+        n_n = shift(nmap, dy, dx, nan)
+        # concavity (getConcavityTerm): 0 on the convex side
+        side = ((v_n - vmap) * nmap).sum(-1)
+        conc = 1.0 - (n_n * nmap).sum(-1)
+        conc = torch.where(side < 0, 0.0, conc)
+        c_term = torch.maximum(c_term, torch.nan_to_num(conc, nan=0.0))
+        # distance discontinuity (getDistanceTerm)
+        d_term = torch.maximum(d_term, torch.nan_to_num(side.abs(), nan=0.0))
+    edge = torch.clamp(torch.maximum(c_term * weight_concavity,
+                                     d_term * weight_distance), max=1.0)
+    yy = torch.arange(H, device=dev)[:, None]
+    xx = torch.arange(W, device=dev)[None, :]
+    border = (xx < 1) | (xx >= W - 1) | (yy < 1) | (yy >= H - 1)
+    invalid = ~torch.isfinite(vmap[..., 0]) | (vmap[..., 2] <= 0)
+    return torch.where(border | invalid, 1.0, edge)
+
+
+def geometric_edge_map(vmap: torch.Tensor, nmap: torch.Tensor,
+                       weight_distance: float = 150.0,
+                       weight_concavity: float = 2.8) -> torch.Tensor:
+    """(H, W, 3) f32 vertex and normal maps (NaN: invalid) -> (H, W) f32
+    edge strength in [0, 1]; the 1-pixel border and invalid pixels are 1.
+    CUDA kernel csrc/geometric_edge_map.cu."""
+    if vmap.device.type == "cpu":
+        return geometric_edge_map_plain(vmap, nmap, weight_distance,
+                                        weight_concavity)
+    H, W = vmap.shape[:2]
+    _check(vmap, "vmap", torch.float32, (H, W, 3))
+    _check(nmap, "nmap", torch.float32, (H, W, 3))
+    out = torch.empty((H, W), dtype=torch.float32, device=vmap.device)
+    err = load_library().mft_geometric_edge_map(
+        vmap.data_ptr(), nmap.data_ptr(), out.data_ptr(), H, W,
+        float(weight_distance), float(weight_concavity), _stream(vmap))
+    _raise_on(err, "geometric_edge_map")
+    geometric_edge_map.launches += 1
+    return out
 
 
 reset_launch_counts()

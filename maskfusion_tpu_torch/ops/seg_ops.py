@@ -1,0 +1,57 @@
+"""Geometric segmentation stencils (device side).
+
+Port of the parts of ``maskfusion_tpu/ops/seg_ops.py`` that the
+multi-object frame runs (ref Core/Cuda/segmentation.cu):
+  - `geometric_edge_map`  (computeGeometricSegmentation_Kernel, :122-177):
+    the hand-written kernel ops/kernels.geometric_edge_map, whose plain
+    version is the JAX package's tap loop;
+  - `morph_binary`        (dilate/erode uchar, :217-255, :334-354);
+  - `threshold_map`       (:257-269).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from maskfusion_tpu_torch.ops import kernels
+from maskfusion_tpu_torch.ops.kernels import shift
+
+
+def geometric_edge_map(vmap: torch.Tensor, nmap: torch.Tensor,
+                       weight_distance: float,
+                       weight_concavity: float) -> torch.Tensor:
+    """Per-pixel edginess in [0, 1]: max(wC * concavity, wD * distance
+    discontinuity) over the 8-neighbourhood; border pixels and invalid
+    depth are 1.  vmap, nmap: (H, W, 3) f32 with NaN for invalid."""
+    return kernels.geometric_edge_map(
+        vmap.to(torch.float32).contiguous(),
+        nmap.to(torch.float32).contiguous(),
+        weight_distance, weight_concavity)
+
+
+def _window_extreme(img: torch.Tensor, radius: int, is_max: bool,
+                    include_center: bool) -> torch.Tensor:
+    fill = -float("inf") if is_max else float("inf")
+    out = img if include_center else torch.full_like(img, fill)
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            if dy == 0 and dx == 0 and not include_center:
+                continue
+            nb = shift(img, dy, dx, fill)
+            out = torch.maximum(out, nb) if is_max else torch.minimum(out, nb)
+    return out
+
+
+def morph_binary(mask: torch.Tensor, radius: int,
+                 iterations: int) -> torch.Tensor:
+    """Binary closing: `iterations` rounds of dilate-then-erode over a
+    (2r+1)^2 window, centre excluded like the reference kernels."""
+    m = mask
+    for _ in range(iterations):
+        d = _window_extreme(m.to(torch.float32), radius, True, False) > 0
+        m = _window_extreme(d.to(torch.float32), radius, False, False) > 0
+    return m
+
+
+def threshold_map(edge: torch.Tensor, threshold: float) -> torch.Tensor:
+    return edge > threshold

@@ -61,9 +61,12 @@ def _camera_rows(m: SurfelMap, pose_inv: torch.Tensor):
 
 def render_index_map(m: SurfelMap, pose_inv: torch.Tensor,
                      intr: CameraIntrinsics, height: int, width: int, time,
-                     time_delta, max_depth) -> IndexMap:
+                     time_delta, max_depth, conf_threshold=None,
+                     max_time=None) -> IndexMap:
     """Single-pixel surfel render with nearest-depth visibility; gates
-    follow index_map.vert:44-49 (z in (0, maxDepth], active time window)."""
+    follow index_map.vert:44-49 (z in (0, maxDepth], active time window).
+    `conf_threshold` / `max_time` add the splat.vert:57 gates where given
+    (the global id projection renders at confidence 12)."""
     p_cam, packed, slices = _camera_rows(m, pose_inv)
     z = p_cam[:, 2]
     safe_z = torch.where(z != 0, z, 1.0)
@@ -72,6 +75,10 @@ def render_index_map(m: SurfelMap, pose_inv: torch.Tensor,
     ok = (m.slot_mask() & ((time - m.last_seen) <= time_delta) & (z > 0)
           & (z <= max_depth) & (ui >= 0) & (ui < width) & (vi >= 0)
           & (vi < height))
+    if conf_threshold is not None:
+        ok = ok & (m.conf >= conf_threshold)
+    if max_time is not None:
+        ok = ok & (m.last_seen <= max_time)
     lin = torch.where(ok, vi * width + ui, 0.0).to(torch.int64)
 
     idx, win_z = sort_utils.zbuffer_render(lin, z, ok, height * width)

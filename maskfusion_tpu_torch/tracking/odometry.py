@@ -158,13 +158,15 @@ def get_incremental_transformation(
     num_levels: int = 3,
     assoc_period: int = 1,
     gn_step_eps: float = 0.0,
+    gn_damping: float = 0.0,
+    rgb_finest_only: bool = False,
 ) -> OdometryResult:
     """One tracking solve (RGBDOdometry.cpp:227-497); the arguments and
-    schedule are those of maskfusion_tpu.tracking.odometry, without its
-    object-model options (gn_damping, rgb_finest_only, precomputed
-    last_valids), which come with the multi-object slice."""
+    schedule are those of maskfusion_tpu.tracking.odometry, with its
+    object-model options gn_damping and rgb_finest_only (its precomputed
+    last_valids serve only the windowed object pass, not ported yet)."""
     use_icp = (not rgb_only) and icp_weight > 0
-    use_rgb = rgb_only or icp_weight < 100
+    use_rgb_any = rgb_only or icp_weight < 100
     dev = t_prev.device
     f32 = torch.float32
     t_prev = t_prev.to(f32)
@@ -179,6 +181,10 @@ def get_incremental_transformation(
 
     didx, didy = [], []
     for i in range(num_levels):
+        if not (use_rgb_any and (i == 0 or not rgb_finest_only)):
+            didx.append(None)
+            didy.append(None)
+            continue
         dx, dy = pp.compute_derivative_images(frame.intensities[i])
         didx.append(dx)
         didy.append(dy)
@@ -249,6 +255,9 @@ def get_incremental_transformation(
         Kj, K_invj = _k_matrices(intr, lvl, dev)
         il = intr.level(lvl)
         min_scale = (min_grad_magnitudes[lvl] ** 2) / (sobel_scale ** 2)
+        # rgb_finest_only: a small object's coarse-level photometrics are
+        # boundary-dominated, so its coarse levels stay ICP only
+        use_rgb = use_rgb_any and (lvl == 0 or not rgb_finest_only)
         vn_packed = red.pack_model_maps(
             model.vmaps_g[lvl], model.nmaps_g[lvl]) if use_icp else None
         static_valid = red.rgb_static_valid(
@@ -272,7 +281,7 @@ def get_incremental_transformation(
                 last_valid=last_valid)
 
         def body(carry, frozen=None, lvl=lvl, il=il, vn_packed=vn_packed,
-                 rgb_corres=rgb_corres):
+                 rgb_corres=rgb_corres, use_rgb=use_rgb):
             (result_rt, t_curr, R_curr, last_rgb_error, lastA, lastb,
              icp_error, icp_count, rgb_error, rgb_count, done) = carry
             if use_rgb and frozen is None:
@@ -317,6 +326,11 @@ def get_incremental_transformation(
                 A, b = icp_term.A, icp_term.b
             else:
                 A, b = rgb_term.A, rgb_term.b
+            if gn_damping > 0:
+                # Levenberg-style zero-step prior for small objects' few-pixel
+                # systems (Config.object_gn_damping)
+                lam = gn_damping * (torch.trace(A) / 6.0)
+                A = A + lam * torch.eye(6, dtype=A.dtype, device=dev)
             x = se3.solve_6x6_ldlt(A, b)
             new_result_rt = se3.se3_exp_update(result_rt, x)
             currentT = prevT @ se3.pose_inverse(new_result_rt)
@@ -332,7 +346,7 @@ def get_incremental_transformation(
             return kept + (out_done,)
 
         def fresh_assoc(c, lvl=lvl, il=il, vn_packed=vn_packed,
-                        rgb_corres=rgb_corres):
+                        rgb_corres=rgb_corres, use_rgb=use_rgb):
             assoc = red.icp_associate(
                 c[2], c[1], frame.vmaps[lvl], frame.nmaps[lvl], R_prev_inv,
                 t_prev, il, vn_packed, dist_thresh, angle_thresh_sine,
@@ -382,8 +396,9 @@ def get_incremental_transformation(
         (result_rt, t_curr, R_curr, _, lastA, lastb,
          icp_error, icp_count, rgb_error, rgb_count, _) = carry
 
-    # translation jump rejection (.cpp:478-482)
-    if use_rgb:
+    # translation jump rejection (.cpp:478-482); the JAX package reads the
+    # finest level's photometric switch here
+    if use_rgb_any:
         jumped = torch.linalg.vector_norm(t_curr - t_prev) > \
             translation_jump_limit
         t_curr = torch.where(jumped, t_prev, t_curr)

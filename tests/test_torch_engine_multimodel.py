@@ -1,0 +1,403 @@
+"""The port's synchronous multi-object frame: the scenarios of
+tests/test_engine_multimodel.py at their bounds, the configurations that
+raise until a later slice brings them, and a lockstep run against the JAX
+engine from a state carried across after the spawns.
+
+Lockstep bounds, per frame: the same model ids and class ids; the global
+pose to 1 mm and 0.05 deg (the static parity test's); each object's logged
+pose to 8 mm (tests/test_engine_multimodel.py:200-201: the small-object
+solve amplifies float32 rounding); each model's surfel count to 1%."""
+
+import numpy as np
+import pytest
+
+import maskfusion_tpu.cpp as jnative
+from maskfusion_tpu.camera import Resolution as JResolution
+from maskfusion_tpu.config import Config as JConfig
+from maskfusion_tpu.engine import MaskFusion as JMaskFusion
+from maskfusion_tpu.frame import FrameData as JFrameData
+from maskfusion_tpu_torch.camera import Resolution
+from maskfusion_tpu_torch.config import Config
+from maskfusion_tpu_torch.convert import engine_snapshot, restore_engine
+from maskfusion_tpu_torch.engine import MaskFusion
+from maskfusion_tpu_torch.frame import FrameData
+from tests import synthetic as syn
+from tests.torch_helpers import CPU, tintr
+
+BASE = dict(global_surfel_capacity=1 << 16, object_surfel_capacity=1 << 13,
+            seg_method="precomputed", use_so3=False, open_loop=True)
+
+
+def make_engine(**overrides) -> MaskFusion:
+    """tests/test_engine_multimodel.py's make_engine, on the port."""
+    return MaskFusion(Resolution(syn.W, syn.H), tintr(syn.DEFAULT_INTR),
+                      Config(**{**BASE, **overrides}), device=CPU)
+
+
+def logged(eng, i: int) -> np.ndarray:
+    return eng.pose_log_numpy(i)[-1]
+
+
+def run_moving_object(n_frames=6, step=0.008, cam_poses=None, **overrides):
+    eng = make_engine(**overrides)
+    if cam_poses is None:
+        cam_poses = [np.eye(4, dtype=np.float32)] * n_frames
+    offsets = []
+    for i in range(n_frames):
+        off = np.array([step * max(0, i - 1), 0.0, 0.0])
+        offsets.append(off)
+        pts, cols, labels = syn.make_scene_with_object(offset=off)
+        rgb, depth, lab = syn.render(pts, cols, cam_poses[i],
+                                     syn.DEFAULT_INTR, labels=labels)
+        eng.process_frame(FrameData(rgb=rgb, depth=depth, mask=lab,
+                                    class_ids=[0, 7], timestamp=float(i)))
+    return eng, offsets
+
+
+# ------------------------------------------------------------ scenarios
+def test_object_model_spawns():
+    eng, _ = run_moving_object(n_frames=3, step=0.0)
+    assert len(eng.models) == 2
+    obj = eng.models[1]
+    assert obj.model_id == 1
+    assert obj.class_id == 7
+    assert obj.surfel_count > 50
+
+
+def test_object_motion_tracked():
+    eng, offsets = run_moving_object(n_frames=6, step=0.008)
+    assert len(eng.models) >= 2
+    est = logged(eng, 1)[:3, 3]
+    true = offsets[-1] - offsets[1]
+    assert np.linalg.norm(true) > 0.02
+    err = np.linalg.norm(est - true)
+    assert err < 0.025, f"object translation error {err * 1e3:.1f} mm"
+    assert np.linalg.norm(eng.current_pose[:3, 3]) < 5e-3
+
+
+@pytest.mark.parametrize("static_scene", [False, True],
+                         ids=["default", "warm_start"])
+def test_static_object_with_moving_camera(static_scene):
+    """Default tracker: a catastrophic-drift guard (8 cm); the static-scene
+    options (warm start, damping, finest-level photometrics): 6 mm."""
+    poses = [syn.pose_from(np.zeros(3), np.array([0.004 * i, 0, 0]))
+             for i in range(5)]
+    opts = dict(object_warm_start=True, object_gn_damping=0.05,
+                object_rgb_finest_only=True) if static_scene else {}
+    eng, _ = run_moving_object(n_frames=5, step=0.0, cam_poses=poses, **opts)
+    assert len(eng.models) >= 2
+    est = logged(eng, 1)[:3, 3]
+    assert np.linalg.norm(est) < (6e-3 if static_scene else 0.08), est
+    assert np.linalg.norm(eng.current_pose[:3, 3] - poses[-1][:3, 3]) < 4e-3
+
+
+def test_mask_gates_fusion():
+    eng, _ = run_moving_object(n_frames=4, step=0.0)
+    m = eng.download_map(1)
+    assert np.abs(np.median(m["pos"][:, 2]) - 1.5) < 0.1
+    assert m["pos"][:, 0].min() > -0.35 and m["pos"][:, 0].max() < 0.55
+
+
+def test_spawn_subtraction_carves_global_map():
+    counts = {}
+    for flag in (False, True):
+        eng, _ = run_moving_object(n_frames=3, step=0.0,
+                                   spawn_subtraction=flag)
+        assert len(eng.models) == 2
+        counts[flag] = eng.models[0].surfel_count
+    carved = counts[False] - counts[True]
+    assert carved > 30, f"spawn subtraction removed only {carved} surfels"
+
+
+def _two_object_frames(n, cam_step=0.0):
+    frames = []
+    for i in range(n):
+        o1 = np.array([0.006 * max(0, i - 1), 0.0, 0.0])
+        o2 = np.array([0.0, -0.006 * max(0, i - 2), 0.0])
+        pts, cols, labels = syn.make_scene_with_two_objects(o1, o2)
+        cam = syn.pose_from(np.zeros(3), np.array([cam_step * i, 0, 0]))
+        frames.append(syn.render(pts, cols, cam, syn.DEFAULT_INTR,
+                                 labels=labels) + (cam,))
+    return frames
+
+
+def test_two_objects():
+    """Two live objects; batch_object_tracking=True (no object window at
+    this size) runs the same per-model loop as False, so the two agree at
+    the bounds of tests/test_engine_multimodel.py:172-201."""
+    results = {}
+    frames = _two_object_frames(5)
+    for batched in (True, False):
+        eng = make_engine(model_spawn_offset=0,
+                          batch_object_tracking=batched)
+        for i, (rgb, depth, lab, _) in enumerate(frames):
+            eng.process_frame(FrameData(rgb=rgb, depth=depth, mask=lab,
+                                        class_ids=[0, 7, 8],
+                                        timestamp=float(i)))
+        assert [m.model_id for m in eng.models] == [0, 1, 2]
+        assert [m.class_id for m in eng.models[1:]] == [7, 8]
+        results[batched] = [m.state.pose.numpy() for m in eng.models]
+    np.testing.assert_allclose(results[True][0], results[False][0],
+                               atol=1e-4)
+    for pb, ps in zip(results[True][1:], results[False][1:]):
+        np.testing.assert_allclose(pb, ps, atol=8e-3)
+
+
+def test_jump_inactivates_and_ids_skip_reserved():
+    eng, _ = run_moving_object(n_frames=3, step=0.0)
+    obj = eng.models[1]
+    eng._inactivate_model(obj, "test")
+    # a young model's conf threshold is below min_conf_keep: not kept
+    assert eng.models == [eng.models[0]] and eng.inactive_models == []
+    eng.next_id = 252
+    assert [eng._get_next_model_id(True) for _ in range(3)] == [252, 253, 1]
+
+
+# --------------------------------------------- the slice's device ops
+@pytest.fixture(scope="module")
+def spawned_pair():
+    """The JAX engine after a spawn, and the port's engine carried from it:
+    a global map and an object map.  The tests below only read them."""
+    jeng = JMaskFusion(JResolution(syn.W, syn.H), syn.DEFAULT_INTR,
+                       JConfig(**{**BASE, "model_spawn_offset": 0}))
+    frames = _two_object_frames(3)
+    for i, (rgb, depth, lab, _) in enumerate(frames[:2]):
+        jeng.process_frame(JFrameData(rgb=rgb, depth=depth, mask=lab,
+                                      class_ids=[0, 7, 8],
+                                      timestamp=float(i)))
+    teng = make_engine(model_spawn_offset=0)
+    restore_engine(teng, engine_snapshot(jeng))
+    return jeng, teng, frames
+
+
+def test_project_and_combine_ids_match_jax(spawned_pair):
+    """project_ids (the conf-12 render gate and combined_predict) per model
+    and combine_ids' argmin: the same uint8 id image, depths to 1e-5 where
+    both show a surface (the scan's tie bound elsewhere)."""
+    import jax.numpy as jnp
+    import torch
+
+    jeng, teng, _ = spawned_pair
+    time = float(jeng.tick + 1)
+    depths_j, depths_t = [], []
+    for mj, mt in zip(jeng.models, teng.models):
+        depths_j.append(jeng._project_ids(mj.state.map, mj.state.pose, time,
+                                          5.0, bucket=1 << 16 if
+                                          mj.model_id == 0 else 1 << 13))
+        depths_t.append(teng.project_ids(mt.state.map, mt.state.pose, time,
+                                         5.0, bucket=mt.state.map.capacity))
+    for k, (dj, dt) in enumerate(zip(depths_j, depths_t)):
+        dj, dt = np.asarray(dj), dt.numpy()
+        both = np.isfinite(dj) & np.isfinite(dt)
+        gap = np.abs(np.where(both, dj, 0.0) - np.where(both, dt, 0.0))
+        differ = (np.isfinite(dj) != np.isfinite(dt)) | (gap > 1e-5)
+        # a young global map stays under confidence 12; objects, spawned
+        # at weight 100, show
+        assert both.any() == (k > 0)
+        assert differ.mean() < 3e-3
+    ids = [m.model_id for m in jeng.models]
+    ij = np.asarray(jeng._combine_ids(depths_j, jnp.asarray(ids, jnp.int32)))
+    it = MaskFusion.combine_ids(
+        [torch.from_numpy(np.array(d)) for d in depths_j],
+        torch.tensor(ids, dtype=torch.int32)).numpy()
+    assert it.dtype == np.uint8
+    np.testing.assert_array_equal(it, ij)
+    assert {1} <= set(np.unique(it))
+
+
+@pytest.mark.parametrize("max_time", [None, 1.0])
+def test_render_gates_match_jax(spawned_pair, max_time):
+    """render_index_map's conf_threshold and max_time gates, as the JAX
+    package's (maskfusion_tpu/ops/splat.py:63-90), at a threshold that
+    splits the global map's confidences."""
+    import jax.numpy as jnp
+    import torch
+
+    from maskfusion_tpu.ops import splat as jsplat
+    from maskfusion_tpu_torch.ops import splat as tsplat
+
+    jeng, teng, _ = spawned_pair
+    mj, mt = jeng.models[0].state.map, teng.models[0].state.map
+    c = int(mt.count)
+    conf, seen = mt.conf.numpy()[:c], mt.last_seen.numpy()[:c]
+    assert max_time is None or seen.min() <= max_time < seen.max()
+    kw = dict(time=float(jeng.tick), time_delta=200, max_depth=5.0,
+              conf_threshold=float(np.median(conf)), max_time=max_time)
+    imj = jsplat.render_index_map(mj, jnp.eye(4), syn.DEFAULT_INTR, syn.H,
+                                  syn.W, **kw)
+    imt = tsplat.render_index_map(mt, torch.eye(4), tintr(syn.DEFAULT_INTR),
+                                  syn.H, syn.W, **kw)
+    ij, it = np.asarray(imj.index), imt.index.numpy()
+    assert (ij == it).mean() > 1 - 1e-3
+    plain = tsplat.render_index_map(mt, torch.eye(4),
+                                    tintr(syn.DEFAULT_INTR), syn.H, syn.W,
+                                    float(jeng.tick), 200, 5.0)
+    # the gates take pixels away, never add any
+    assert (it >= 0).sum() < (plain.index.numpy() >= 0).sum()
+
+
+def test_erase_error_geometry_matches_jax(spawned_pair):
+    """Spawn subtraction on the global map: the same surfels carved."""
+    import jax.numpy as jnp
+    import torch
+
+    from maskfusion_tpu.ops import clean as jclean
+    from maskfusion_tpu_torch.ops import clean as tclean
+
+    jeng, teng, frames = spawned_pair
+    _, depth, lab, _ = frames[2]
+    seg = np.where(lab == 1, 1, 0).astype(np.uint8)
+    pose_inv = np.eye(4, dtype=np.float32)
+    mj, mt = jeng.models[0].state.map, teng.models[0].state.map
+    oj, rj = jclean.erase_error_geometry(
+        mj, jnp.asarray(seg), jnp.uint8(1), jnp.asarray(depth),
+        jnp.asarray(pose_inv), syn.DEFAULT_INTR, 0.05)
+    ot, rt = tclean.erase_error_geometry(
+        mt, torch.from_numpy(seg), 1, torch.from_numpy(depth),
+        torch.from_numpy(pose_inv), tintr(syn.DEFAULT_INTR), 0.05)
+    assert int(rt) == int(rj) > 30
+    c = int(oj.count)
+    assert int(ot.count) == c
+    np.testing.assert_allclose(ot.pos.numpy()[:c], np.asarray(oj.pos)[:c],
+                               atol=1e-6)
+
+
+# --------------------------------------------- not ported: must raise
+@pytest.mark.parametrize("overrides,res", [
+    (dict(seg_method="maskfusion", pipelined_multiobject=True), (160, 120)),
+    (dict(seg_method="maskfusion", pipelined_multiobject=False,
+          batch_object_tracking=True), (640, 480)),
+    (dict(seg_method="cofusion"), (160, 120)),
+    (dict(enable_redetection=True), (160, 120)),
+    (dict(relocalisation=True), (160, 120)),
+], ids=["pipelined", "windowed_fused_stage", "cofusion", "redetection",
+        "relocalisation"])
+def test_unported_configurations_raise(overrides, res):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MaskFusion(Resolution(*res), tintr(syn.DEFAULT_INTR),
+                   Config(**{**BASE, **overrides}), device=CPU)
+
+
+def test_gt_pose_raises():
+    eng = make_engine()
+    rgb, depth, lab, _ = _two_object_frames(1)[0]
+    frame = FrameData(rgb=rgb, depth=depth, mask=lab, class_ids=[0, 7, 8])
+    eng.process_frame(frame)
+    with pytest.raises(NotImplementedError, match="ground-truth"):
+        eng.process_frame(frame, gt_pose=np.eye(4))
+
+
+# ------------------------------------------------------------- lockstep
+SLICE = dict(BASE, seg_method="maskfusion", pipelined_multiobject=False,
+             batch_object_tracking=False, model_spawn_offset=0)
+
+
+def _rot_deg(a, b):
+    return syn.rotation_angle_deg(a[:3, :3], b[:3, :3])
+
+
+def test_lockstep_with_jax_engine():
+    """The JAX engine runs the slice's configuration (maskfusion
+    segmentation from the frame's masks, synchronous schedule, per-model
+    loop) through both spawns; its whole state crosses over with
+    convert.engine_snapshot / restore_engine, and both engines run the
+    remaining frames side by side.  The scene is the two-object motion of
+    tests/test_engine_multimodel.py:172-201, four tracked frames after the
+    carry.  (With the camera also moving, or over more frames, the object
+    poses of the two engines drift apart by several mm: ROADMAP, faults.)"""
+    frames = _two_object_frames(7)
+    saved = jnative._lib, jnative._tried
+    jnative._lib, jnative._tried = None, True     # the JAX numpy path
+    try:
+        jeng = JMaskFusion(JResolution(syn.W, syn.H), syn.DEFAULT_INTR,
+                           JConfig(**SLICE))
+
+        def jframe(i):
+            rgb, depth, lab, _ = frames[i]
+            return JFrameData(rgb=rgb, depth=depth, mask=lab,
+                              class_ids=[0, 7, 8], timestamp=float(i))
+
+        for i in range(3):
+            jeng.process_frame(jframe(i))
+        assert [m.model_id for m in jeng.models] == [0, 1, 2]
+        teng = MaskFusion(Resolution(syn.W, syn.H), tintr(syn.DEFAULT_INTR),
+                          Config(**SLICE), device=CPU)
+        restore_engine(teng, engine_snapshot(jeng))
+        assert [m.surfel_count for m in teng.models] == \
+            [m.surfel_count for m in jeng.models]
+
+        for i in range(3, len(frames)):
+            rgb, depth, lab, cam = frames[i]
+            dj = jeng.process_frame(jframe(i))
+            dt = teng.process_frame(FrameData(
+                rgb=rgb, depth=depth, mask=lab, class_ids=[0, 7, 8],
+                timestamp=float(i)))
+            assert dt["model_ids"] == dj["model_ids"], i
+            assert dt["tracking_ok"] == dj["tracking_ok"], i
+            assert [m.class_id for m in teng.models] == \
+                [m.class_id for m in jeng.models]
+            np.testing.assert_array_equal(teng.last_segmentation,
+                                          jeng.last_segmentation)
+            pj = [np.asarray(m.pose_log[-1]["pose"]) for m in jeng.models]
+            pt = [teng.pose_log_numpy(k)[-1] for k in range(len(pj))]
+            dpos = np.linalg.norm(pt[0][:3, 3] - pj[0][:3, 3])
+            assert dpos <= 1e-3, f"frame {i}: global {dpos * 1e3:.3f} mm"
+            assert _rot_deg(pt[0], pj[0]) <= 0.05, i
+            for k in range(1, len(pj)):
+                d = np.linalg.norm(pt[k][:3, 3] - pj[k][:3, 3])
+                assert d <= 8e-3, f"frame {i}: object {k} {d * 1e3:.2f} mm"
+            for mt, mj in zip(teng.models, jeng.models):
+                assert abs(mt.surfel_count - mj.surfel_count) \
+                    <= 0.01 * mj.surfel_count, \
+                    (i, mt.model_id, mt.surfel_count, mj.surfel_count)
+        # the camera held still while both objects moved
+        assert np.linalg.norm(pt[0][:3, 3]) < 5e-3
+        for k, true in ((1, [0.024, 0.0, 0.0]), (2, [0.0, -0.024, 0.0])):
+            assert np.linalg.norm(pt[k][:3, 3] - true) < 0.025, (k, pt[k])
+    finally:
+        jnative._lib, jnative._tried = saved
+
+
+def test_segment_sums_are_exact_where_the_jax_prefix_sums_drift():
+    """Why the lockstep run stays short.  Fuse merges each matched surfel
+    with the weighted mean of its pixel records.  The JAX package takes the
+    per-slot sums as differences of one float32 running sum over all
+    records (maskfusion_tpu/ops/sort_utils.py:77-124), so a slot's sum
+    carries the rounding of the whole running total; the port sums per
+    slot.  At the lockstep scene's scale (~19k surfels, a 160x120 frame of
+    records, 2 m depths) the JAX merge moves positions by millimetres, and
+    each frame's global fuse then feeds the next track: the engines drift
+    apart over frames (ROADMAP, faults).  The port's sums hold float64."""
+    import jax.numpy as jnp
+    import torch
+
+    from maskfusion_tpu.ops import sort_utils as jsu
+    from maskfusion_tpu_torch.ops import sort_utils as tsu
+
+    rng = np.random.default_rng(0)
+    n_rec, cap, used = syn.W * syn.H, 1 << 16, 18922
+    slots = rng.integers(0, used, n_rec).astype(np.int32)
+    valid = rng.random(n_rec) < 0.5
+    a = rng.uniform(0.2, 1.0, n_rec).astype(np.float32)
+    pos = (rng.normal(0.0, 0.6, (n_rec, 3)) + [0.0, 0.0, 2.0]).astype(
+        np.float32)
+    vals = [a, a[:, None] * pos]
+    exact_a = np.zeros(cap)
+    exact_p = np.zeros((cap, 3))
+    np.add.at(exact_a, slots[valid], vals[0][valid].astype(np.float64))
+    np.add.at(exact_p, slots[valid], vals[1][valid].astype(np.float64))
+    hit = exact_a > 0
+    mean = exact_p[hit] / exact_a[hit, None]
+
+    def merged_err(sums):
+        sa, sp = (np.asarray(s, np.float64) for s in sums)
+        return np.abs(sp[hit] / sa[hit, None] - mean).max()
+
+    ours = tsu.segment_sum_dense(torch.from_numpy(slots),
+                                 torch.from_numpy(valid),
+                                 [torch.from_numpy(v) for v in vals], cap)
+    ref = jsu.segment_sum_dense(jnp.asarray(slots), jnp.asarray(valid),
+                                [jnp.asarray(v) for v in vals], cap)
+    assert merged_err([s.numpy() for s in ours]) < 1e-5
+    # the reference's known difference: millimetres on the same records
+    assert merged_err(ref) > 1e-3

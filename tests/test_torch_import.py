@@ -27,6 +27,12 @@ import maskfusion_tpu_torch
 import maskfusion_tpu_torch.engine
 import maskfusion_tpu_torch.convert
 import maskfusion_tpu_torch.ops.kernels
+import maskfusion_tpu_torch.ops.seg_ops
+import maskfusion_tpu_torch.segmentation
+import maskfusion_tpu_torch.segmentation.components
+import maskfusion_tpu_torch.segmentation.mf_segmentation
+import maskfusion_tpu_torch.segmentation.pre_segmentation
+import maskfusion_tpu_torch.segmentation.result
 """
 
 

@@ -69,7 +69,7 @@ def test_library_is_keyed_by_sources():
     assert p.parent.name == "kernels" and p.parent.parent.name == "build"
     assert p.name.startswith("libmft_kernels_") and p.suffix == ".so"
     assert {s.name for s in kernels._sources()} == {
-        "bilateral_depth.cu", "predict_l0_scan.cu"}
+        "bilateral_depth.cu", "predict_l0_scan.cu", "geometric_edge_map.cu"}
 
 
 @pytest.mark.cuda
@@ -100,6 +100,21 @@ def test_scan_kernel_matches_plain(cuda_device, h, w):
                            max_flips=chip_smoke.SYNTHETIC_SCAN_MAX_FLIPS)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(H, W), (37, 53)])
+def test_edge_map_kernel_matches_plain(cuda_device, h, w):
+    """Kernel 3 against its plain version on the synthetic scene's vertex
+    and normal maps (with a depth hole), at chip_smoke.check_edge_map's
+    bound: fewer than 3e-3 of the pixels differ by more than 1e-5."""
+    vmap, nmap = chip_smoke.synthetic_edge_args(cuda_device, h, w)
+    before = kernels.geometric_edge_map.launches
+    out = kernels.geometric_edge_map(vmap, nmap, 150.0, 2.8)
+    torch.cuda.synchronize()
+    assert kernels.geometric_edge_map.launches == before + 1
+    ref = kernels.geometric_edge_map_plain(vmap, nmap, 150.0, 2.8)
+    chip_smoke.check_edge_map(out, ref)
+
+
 @pytest.mark.parametrize("wrong", ["centre", "transposed", "none"])
 def test_scan_check_catches_wrong_winner(wrong):
     """check_scan refuses a best_src that names another tap than the one
@@ -127,3 +142,8 @@ def test_wrappers_refuse_what_kernels_do_not_take(cuda_device):
         kernels.bilateral_depth(d)
     with pytest.raises(ValueError):
         kernels.bilateral_depth(torch.zeros((8, 16), device=cuda_device).T)
+    v = torch.zeros((8, 8, 3), device=cuda_device)
+    with pytest.raises(ValueError):
+        kernels.geometric_edge_map(v, v[:, :4])
+    with pytest.raises(ValueError):
+        kernels.geometric_edge_map(v.double(), v.double())
