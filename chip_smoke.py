@@ -10,7 +10,8 @@ stopped; any failure raises and exits non-zero):
   2. each kernel against its plain PyTorch version at the main path's
      shapes (640x480; the scan also on the 160x120 synthetic scene): depth
      agreement, the scan's winner ids (check_scan), kernel and plain times,
-     the card's bound;
+     the card's bound, and each kernel's registers, shared memory, spills
+     (ptxas -v) and launch grid;
   3. the -static engine at 640x480 with a 2^22-surfel map on bench.py's
      synthetic frames: 8 warm-up and 20 timed frames, FPS and the kernels'
      launch counts over that run; then per-stage device times (CUDA events,
@@ -25,8 +26,9 @@ stopped; any failure raises and exits non-zero):
   6. the synchronous multi-object engine at 640x480 (2^22 global and 2^19
      object surfels) on bench.py's two-object frames: 14 warm-up and 12
      timed frames, FPS, the three kernels' launch counts over that run, the
-     run reaching 3 models; then per-stage device and host times (4
-     frames) and a torch.profiler view (2 frames);
+     run reaching 3 models; kernel 2 on object 1's index map (live share,
+     check_scan, times); then per-stage device and host times (4 frames)
+     and a torch.profiler view (2 frames);
   7. 7 frames of a 160x120 two-object scene through the multi-object engine
      on the CPU, and on the card from the CPU's state after both spawns:
      per frame the same model and class ids and the global pose within
@@ -379,6 +381,9 @@ def bilateral_bound(H: int, W: int, R: int):
 
 
 def scan_bound(live, window: int = 2):
+    """What these inputs need from any implementation: every pixel's live
+    byte and its 8 output bytes, pos, normal and radius (28 B) of the live
+    texels only; the ray of every pixel and the hit of every live tap."""
     import torch
 
     H, W = live.shape
@@ -387,8 +392,9 @@ def scan_bound(live, window: int = 2):
         live.to(torch.float32)[None, None],
         torch.ones((1, 1, k, k), device=live.device), padding=window)
     live_taps = int(box.sum().item())
+    n_live = int(live.sum().item())
     ops = SCAN_OPS_PER_PIXEL * H * W + SCAN_OPS_PER_LIVE_TAP * live_taps
-    nbytes = H * W * (12 + 12 + 4 + 1) + H * W * (4 + 4)
+    nbytes = H * W * (1 + 4 + 4) + n_live * (12 + 12 + 4)
     return bound_record(ops, nbytes)
 
 
@@ -498,6 +504,86 @@ def check_edge_map(out, ref) -> dict:
     return res
 
 
+def build_fields(kernels, name: str, H: int, W: int, param: int) -> dict:
+    """A kernel record's registers, shared bytes (static + dynamic) and
+    spill bytes, from ptxas -v of this run's build, and its launch at
+    (H, W) with radius / window `param`: grid, threads a block, blocks
+    resident a SM and the waves they make on this card."""
+    import torch
+
+    entry = {"bilateral_depth": f"bilateral_depth_kernelILi{param}E",
+             "predict_l0_scan": f"predict_l0_scan_kernelILi{param}E",
+             "geometric_edge_map": "geometric_edge_map_kernel"}[name]
+    hits = [v for k, v in kernels.kernel_resources().items() if entry in k]
+    if len(hits) != 1:
+        raise AssertionError(f"{name}: {len(hits)} ptxas entries match "
+                             f"{entry!r} in the build log")
+    res = hits[0]
+    shape = kernels.launch_shape(name, H, W, param)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = shape["grid"][0] * shape["grid"][1]
+    return {"regs": res["regs"],
+            "smem_bytes": res["smem_static"] + shape["dynamic_smem_bytes"],
+            "spills": res["spill_stores"] + res["spill_loads"],
+            "grid": shape["grid"], "threads": shape["threads"],
+            "blocks_per_sm": shape["blocks_per_sm"],
+            "waves": blocks / (sms * shape["blocks_per_sm"])}
+
+
+def log_build_fields(name: str, rec: dict) -> None:
+    log(f"  {name}: {rec['regs']} registers, {rec['smem_bytes']} shared "
+        f"bytes, {rec['spills']} spill bytes; grid {rec['grid']} of "
+        f"{rec['threads']} threads, {rec['blocks_per_sm']} resident a SM, "
+        f"{rec['waves']:.3f} waves")
+
+
+def scan_record(kernels, args, which: str, window: int = 2) -> dict:
+    """Kernel 2 against its plain version on the index map in `args`
+    (check_scan), both timed, with the bound of these inputs and the
+    kernel's build fields."""
+    import torch
+
+    live = args[3]
+    H, W = live.shape
+    z, s = kernels.predict_l0_scan(*args)
+    torch.cuda.synchronize()
+    zp, sp = kernels.predict_l0_scan_plain(*args)
+    agree = check_scan(args, z, s, zp, sp)
+    ze, se = kernels.predict_l0_scan(*args, exact_division=True)
+    if not (torch.equal(z, ze) and torch.equal(s, se)):
+        raise AssertionError("predict_l0_scan: the fast division and "
+                             "__fdiv_rn give different results")
+    n_live = int(live.sum().item())
+    log(f"  predict_l0_scan {H}x{W}, {which} map ({n_live} live texels, "
+        f"{n_live / (H * W):.2%}): differing pixels "
+        f"{agree['differing_fraction']:.2e}, max |dz| elsewhere "
+        f"{agree['max_abs_err']:.3e}; winner ids differ at equal depth at "
+        f"{agree['winner_id_flips']:.2e}; every winner's own hit depth "
+        f"within {agree['winner_depth_err']:.3e} of best_z; the fast "
+        "division and __fdiv_rn agree bit for bit")
+    ms, ms_win, queued = time_ms(lambda: kernels.predict_l0_scan(*args), 50)
+    plain_ms, _, plain_queued = time_ms(
+        lambda: kernels.predict_l0_scan_plain(*args), 3, 3)
+    rec = {"name": "predict_l0_scan", "map": which, "route": "cuda",
+           "source": "maskfusion_tpu_torch/csrc/predict_l0_scan.cu",
+           "replaces": "maskfusion_tpu/ops/pallas_kernels.py:230",
+           "launches": 0, "max_abs_err": agree["max_abs_err"], "ms": ms,
+           "plain_ms": plain_ms, "library_ms": None, "ms_windows": ms_win,
+           "windows_queued": [queued, plain_queued],
+           "live_texels": n_live, "live_share": n_live / (H * W),
+           "differing_fraction": agree["differing_fraction"],
+           "winner_id_flips": agree["winner_id_flips"],
+           "winner_depth_err": agree["winner_depth_err"],
+           **scan_bound(live, window),
+           **build_fields(kernels, "predict_l0_scan", H, W, window)}
+    log(f"  predict_l0_scan, {which} map: {ms * 1e3:.2f} us (windows "
+        f"{', '.join(f'{w * 1e3:.2f}' for w in ms_win)}; plain "
+        f"{plain_ms:.2f} ms), bound {rec['bound_ms'] * 1e3:.2f} us by "
+        f"{rec['bound_by']}")
+    log_build_fields("predict_l0_scan", rec)
+    return rec
+
+
 # ---------------------------------------------------------------- phases
 def phase_kernels(dev, kernels, MaskFusion, Config, Resolution,
                   CameraIntrinsics, FrameData, frames):
@@ -532,10 +618,14 @@ def phase_kernels(dev, kernels, MaskFusion, Config, Resolution,
            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "library_ms": None, "ms_windows": ms_win,
            "windows_queued": [queued, plain_queued],
-           **bilateral_bound(H, W, R)}
+           **bilateral_bound(H, W, R),
+           **build_fields(kernels, "bilateral_depth", H, W, R)}
     records.append(rec)
-    log(f"  bilateral_depth: {ms * 1e3:.1f} us (plain {plain_ms:.2f} ms), "
-        f"bound {rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']}")
+    log(f"  bilateral_depth: {ms * 1e3:.2f} us (windows "
+        f"{', '.join(f'{w * 1e3:.2f}' for w in ms_win)}; plain "
+        f"{plain_ms:.2f} ms), bound {rec['bound_ms'] * 1e3:.2f} us by "
+        f"{rec['bound_by']}")
+    log_build_fields("bilateral_depth", rec)
 
     # --- kernel 2 on a real index map rendered at 480x640
     intr = CameraIntrinsics(528.0, 528.0, 320.0, 240.0)
@@ -547,41 +637,17 @@ def phase_kernels(dev, kernels, MaskFusion, Config, Resolution,
     im = splat_ops.render_index_map(
         st.map, se3.pose_inverse(st.pose), intr, H, W, 1.0,
         eng.cfg.effective_time_delta(), eng.cfg.depth_cutoff)
-    live = im.index >= 0
     args = (im.pos.contiguous(), im.normal.contiguous(),
-            im.radius.contiguous(), live, intr.fx, intr.fy, intr.cx,
+            im.radius.contiguous(), im.index >= 0, intr.fx, intr.fy, intr.cx,
             intr.cy, eng.cfg.depth_cutoff)
-    z, s = kernels.predict_l0_scan(*args)
-    torch.cuda.synchronize()
-    zp, sp = kernels.predict_l0_scan_plain(*args)
-    agree = check_scan(args, z, s, zp, sp)
-    frac, err = agree["differing_fraction"], agree["max_abs_err"]
-    log(f"  predict_l0_scan 480x640 ({int(live.sum().item())} live "
-        f"texels): differing pixels {frac:.2e}, max |dz| elsewhere "
-        f"{err:.3e}; winner ids differ at equal depth at "
-        f"{agree['winner_id_flips']:.2e}; every winner's own hit depth "
-        f"within {agree['winner_depth_err']:.3e} of best_z")
+    rec = scan_record(kernels, args, "global")
     small = synthetic_scan_args(dev)
     small_agree = check_scan(small, *kernels.predict_l0_scan(*small),
                              *kernels.predict_l0_scan_plain(*small),
                              max_flips=SYNTHETIC_SCAN_MAX_FLIPS)
     log(f"  predict_l0_scan 120x160 synthetic scene: {small_agree}")
-    ms, ms_win, queued = time_ms(lambda: kernels.predict_l0_scan(*args), 50)
-    plain_ms, _, plain_queued = time_ms(
-        lambda: kernels.predict_l0_scan_plain(*args), 3, 3)
-    rec = {"name": "predict_l0_scan", "route": "cuda",
-           "source": "maskfusion_tpu_torch/csrc/predict_l0_scan.cu",
-           "replaces": "maskfusion_tpu/ops/pallas_kernels.py:230",
-           "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": None, "ms_windows": ms_win,
-           "windows_queued": [queued, plain_queued],
-           "differing_fraction": frac,
-           "winner_id_flips": agree["winner_id_flips"],
-           "winner_depth_err": agree["winner_depth_err"],
-           **scan_bound(live)}
+    rec["synthetic_winner_id_flips"] = small_agree["winner_id_flips"]
     records.append(rec)
-    log(f"  predict_l0_scan: {ms * 1e3:.1f} us (plain {plain_ms:.2f} ms), "
-        f"bound {rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']}")
     del eng, st, im
     return records
 
@@ -806,7 +872,9 @@ def phase_edge_kernel(dev, kernels, MaskFusion, Config, Resolution,
            "plain_ms": plain_ms, "library_ms": None, "ms_windows": ms_win,
            "windows_queued": [queued, plain_queued],
            "differing_fraction": agree["differing_fraction"],
-           **edge_bound(vmap)}
+           **edge_bound(vmap),
+           **build_fields(kernels, "geometric_edge_map", H, W, 0)}
+    log_build_fields("geometric_edge_map", rec)
     log(f"  geometric_edge_map: {ms * 1e3:.1f} us (plain {plain_ms:.2f} ms), "
         f"bound {rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']}")
     return rec
@@ -871,13 +939,32 @@ def phase_multiobject(dev, kernels, MaskFusion, Config, Resolution,
         raise AssertionError(f"an empty model map: {counts}")
     log(f"  model ids {[m.model_id for m in engine.models]}, classes "
         f"{[m.class_id for m in engine.models]}, surfels {counts}")
+    # kernel 2 on object 1's index map, rendered as phase 2 renders the
+    # global one; these launches come after the main path's counts
+    from maskfusion_tpu_torch import se3
+    from maskfusion_tpu_torch.ops import splat as splat_ops
+
+    st = engine.models[1].state
+    im = splat_ops.render_index_map(
+        st.map, se3.pose_inverse(st.pose), engine.intr, H, W,
+        float(engine.tick), engine.cfg.effective_time_delta(),
+        engine.cfg.depth_cutoff)
+    if not bool((im.index >= 0).any()):
+        raise AssertionError("object 1's index map holds no live texel")
+    object_scan = scan_record(
+        kernels, (im.pos.contiguous(), im.normal.contiguous(),
+                  im.radius.contiguous(), im.index >= 0, engine.intr.fx,
+                  engine.intr.fy, engine.intr.cx, engine.intr.cy,
+                  engine.cfg.depth_cutoff), "object")
+    del st, im
     dev_ms, host_ms = stage_times(engine, fd[n_main:n_main + n_stage])
     prof = profile_frames(engine, fd[n_main + n_stage:], 1000.0 / fps)
     return {"fps": fps, "timed_s": total, "frames_timed": n_timed,
             "stage_device_ms": dev_ms, "stage_host_ms": host_ms,
             "launches": launches, "launches_per_frame": {
                 k: v / n_main for k, v in launches.items()},
-            "n_models": n_models, "surfels": counts, "profile": prof}
+            "n_models": n_models, "surfels": counts, "profile": prof}, \
+        object_scan
 
 
 def _object_offset(class_id: int, i: int) -> np.ndarray:
@@ -1048,7 +1135,8 @@ def main() -> int:
     log(f"  built {kernels.library_path().name} in "
         f"{kernels.build_seconds:.1f} s")
     for line in kernels.build_log.splitlines():
-        if "registers" in line or line.startswith("=="):
+        if ("registers" in line or "spill" in line
+                or line.startswith("==")):
             log("  " + line.strip())
 
     n_warm, n_timed, n_stage, n_prof = 8, 20, 6, 3
@@ -1086,15 +1174,17 @@ def main() -> int:
 
     log("phase 6: the synchronous multi-object engine at 640x480, 2^22 + "
         "2 x 2^19 surfels")
-    mo_run = phase_multiobject(dev, kernels, MaskFusion, Config, Resolution,
-                               CameraIntrinsics, FrameData, mo_frames, intr,
-                               mo_warm, mo_timed, mo_stage)
+    mo_run, object_scan = phase_multiobject(
+        dev, kernels, MaskFusion, Config, Resolution, CameraIntrinsics,
+        FrameData, mo_frames, intr, mo_warm, mo_timed, mo_stage)
+    records.append(object_scan)
     for rec in records:
         rec["launches_by_path"] = {
             "static": run["launches"].get(rec["name"], 0),
             "multiobject": mo_run["launches"][rec["name"]]}
         rec["launches"] = mo_run["launches"][rec["name"]]
-        log(f"  {rec['name']}: {rec['launches']} launches in the run "
+        log(f"  {rec['name']} ({rec.get('map', 'image')}): "
+            f"{rec['launches']} launches in the run "
             f"({rec['launches'] / (mo_warm + mo_timed):.2f} a frame), "
             f"{rec['ms'] * 1e3:.1f} us per launch against a bound of "
             f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']})")

@@ -107,3 +107,19 @@ extern "C" int mft_geometric_edge_map(const float* vmap, const float* nmap,
       vmap, nmap, out, H, W, wD, wC);
   return (int)cudaGetLastError();
 }
+
+// Launch shape at (H, W): info = {grid x, grid y, threads a block, dynamic
+// shared bytes, resident blocks a SM}.
+extern "C" int mft_geometric_edge_map_grid(int H, int W, int unused,
+                                           int* info) {
+  (void)unused;
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, geometric_edge_map_kernel, kBX * kBY, 0);
+  info[0] = (W + kBX - 1) / kBX;
+  info[1] = (H + kBY - 1) / kBY;
+  info[2] = kBX * kBY;
+  info[3] = 0;
+  info[4] = per_sm;
+  return (int)err;
+}

@@ -25,7 +25,10 @@ launches in a plain integer attribute, ``<wrapper>.launches``.
 The sources are compiled with nvcc into one shared library with a plain C
 interface, loaded with ctypes: one ``nvcc -c`` per source, all started
 together, then one link.  The library lands in ``build/kernels/`` at the
-repository root, named by a hash of the sources, and is built at first use.
+repository root, named by a hash of the sources, and is built at first use;
+ptxas's report of each kernel's registers, shared memory and spills is kept
+beside it (``kernel_resources``), and each source answers for its launch
+shape (``launch_shape``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -77,7 +81,10 @@ def build() -> Path:
     """Compile csrc/*.cu into the shared library (if not built yet)."""
     global build_log, build_seconds
     out = library_path()
+    log_file = out.with_suffix(".log")
     if out.exists():
+        if not build_log and log_file.exists():
+            build_log = log_file.read_text()
         return out
     t0 = time.perf_counter()
     nvcc = _nvcc()
@@ -105,6 +112,9 @@ def build() -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed\n" + link.stdout)
+        tmp_log = Path(tmp) / log_file.name
+        tmp_log.write_text("\n".join(logs))
+        os.replace(tmp_log, log_file)
         os.replace(tmp_so, out)   # atomic: concurrent builds agree
     build_log = "\n".join(logs)
     build_seconds = time.perf_counter() - t0
@@ -118,13 +128,71 @@ def load_library() -> ctypes.CDLL:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.mft_bilateral_depth.argtypes = [P, P, I, I, I, F, F, F, P]
         lib.mft_bilateral_depth.restype = I
-        lib.mft_predict_l0_scan.argtypes = [P, P, P, P, P, P, I, I, I,
-                                            F, F, F, F, F, P]
-        lib.mft_predict_l0_scan.restype = I
+        for fn in (lib.mft_predict_l0_scan, lib.mft_predict_l0_scan_exact):
+            fn.argtypes = [P, P, P, P, P, P, I, I, I, F, F, F, F, F, P]
+            fn.restype = I
         lib.mft_geometric_edge_map.argtypes = [P, P, P, I, I, F, F, P]
         lib.mft_geometric_edge_map.restype = I
+        for name in _KERNELS:
+            fn = getattr(lib, f"mft_{name}_grid")
+            fn.argtypes = [I, I, I, P]
+            fn.restype = I
         _lib = lib
     return _lib
+
+
+_KERNELS = ("bilateral_depth", "predict_l0_scan", "geometric_edge_map")
+
+
+def launch_shape(name: str, H: int, W: int, param: int = 0) -> dict:
+    """The launch of kernel `name` (one of _KERNELS) at an (H, W) image
+    with its radius or window `param`: grid, threads a block, dynamic
+    shared bytes and the blocks the card keeps resident on one SM."""
+    info = (ctypes.c_int * 5)()
+    err = getattr(load_library(), f"mft_{name}_grid")(H, W, int(param),
+                                                      info)
+    _raise_on(err, f"{name} launch shape")
+    return {"grid": [info[0], info[1]], "threads": info[2],
+            "dynamic_smem_bytes": info[3], "blocks_per_sm": info[4]}
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_PROPS = re.compile(r"Function properties for (\S+)")
+_PTXAS_SPILL = re.compile(
+    r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+    r"(\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def kernel_resources(log: Optional[str] = None) -> dict:
+    """Per kernel entry (mangled name) in ptxas -v output (default: this
+    build's): registers, static shared bytes, stack and spill bytes."""
+    out: dict = {}
+    entry = props = None
+    for line in (build_log if log is None else log).splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {"regs": 0, "smem_static": 0, "stack": 0,
+                          "spill_stores": 0, "spill_loads": 0}
+            continue
+        m = _PTXAS_PROPS.search(line)
+        if m:
+            props = m.group(1)
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m and entry is not None and props == entry:
+            out[entry].update(stack=int(m.group(1)),
+                              spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+            continue
+        m = _PTXAS_USED.search(line)
+        if m and entry is not None:
+            smem = _PTXAS_SMEM.search(line)
+            out[entry].update(regs=int(m.group(1)),
+                              smem_static=int(smem.group(1)) if smem else 0)
+    return out
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -266,11 +334,14 @@ def predict_l0_scan_plain(pos, normal, radius, live, fx, fy, cx, cy,
 def predict_l0_scan(pos: torch.Tensor, normal: torch.Tensor,
                     radius: torch.Tensor, live: torch.Tensor,
                     fx: float, fy: float, cx: float, cy: float,
-                    max_depth: float, window: int = 2
+                    max_depth: float, window: int = 2,
+                    exact_division: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Nearest ray-disk hit per pixel over the +-window index-map taps.
     Returns best_z (H, W) f32 (+inf: none) and best_src (H, W) int32, the
-    winning tap's y*W + x (-1: none).  CUDA kernel csrc/predict_l0_scan.cu."""
+    winning tap's y*W + x (-1: none).  CUDA kernel csrc/predict_l0_scan.cu;
+    `exact_division` divides every tap with __fdiv_rn in place of its fast
+    division (the check that both give the same results)."""
     if radius.device.type == "cpu":
         return predict_l0_scan_plain(pos, normal, radius, live, fx, fy, cx,
                                      cy, max_depth, window)
@@ -281,7 +352,10 @@ def predict_l0_scan(pos: torch.Tensor, normal: torch.Tensor,
     _check(live, "live", torch.bool, (H, W))
     best_z = torch.empty((H, W), dtype=torch.float32, device=radius.device)
     best_src = torch.empty((H, W), dtype=torch.int32, device=radius.device)
-    err = load_library().mft_predict_l0_scan(
+    lib = load_library()
+    launch = (lib.mft_predict_l0_scan_exact if exact_division
+              else lib.mft_predict_l0_scan)
+    err = launch(
         pos.data_ptr(), normal.data_ptr(), radius.data_ptr(),
         live.data_ptr(), best_z.data_ptr(), best_src.data_ptr(), H, W,
         int(window), float(fx), float(fy), float(cx), float(cy),

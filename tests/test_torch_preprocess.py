@@ -8,6 +8,7 @@ same."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import torch
 
 from maskfusion_tpu.camera import CameraIntrinsics
 from maskfusion_tpu.ops import pallas_kernels as jpk
@@ -55,6 +56,75 @@ def test_bilateral_engine_params():
     ref = n(jpp.bilateral_filter_depth(jnp.asarray(depth), radius=2,
                                        sigma_space2_inv_half=ss))
     np.testing.assert_allclose(ours, ref, atol=1e-5)
+
+
+def _bilateral_as_the_kernel(depth, radius, ss, sc, min_valid):
+    """The arithmetic of csrc/bilateral_depth.cu in float32 torch: the
+    weight ex2(S - diff^2 * sc*log2e) with the spatial table
+    S = -(dy^2+dx^2) * ss*log2e, the fused multiply-adds (one rounding,
+    taken from float64), ex2's flush below 2^-126; taps outside the image
+    and non-finite ones staged as FLT_MAX on the fast path; centres that are
+    non-finite or above 1e18 on the exact path, which skips non-finite taps.
+    (The card's ex2 differs from torch.exp2 by its own 2 ulp.)"""
+    f32 = torch.float32
+    d = torch.from_numpy(depth)
+    H, W = d.shape
+    log2e = torch.tensor(1.4426950408889634, dtype=f32)
+    ssl = torch.tensor(ss, dtype=f32) * log2e
+    scl = torch.tensor(sc, dtype=f32) * log2e
+    big = torch.finfo(f32).max
+    staged = torch.where(torch.isfinite(d), d, big)
+    pad_fast = torch.nn.functional.pad(staged[None], (radius,) * 4,
+                                       value=big)[0]
+    pad_raw = torch.nn.functional.pad(d[None], (radius,) * 4,
+                                      value=float("inf"))[0]
+
+    def fma(a, b, c):
+        return (a.double() * b.double() + c.double()).to(f32)
+
+    def ex2(e):
+        w = torch.exp2(e)
+        return torch.where(w < 2.0 ** -126, 0.0, w)
+
+    zero = torch.zeros_like(d)
+    s1f, s2f, s1e, s2e = zero, zero, zero, zero
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            S = -(torch.tensor(float(dy * dy + dx * dx), dtype=f32) * ssl)
+            win = (slice(radius + dy, radius + dy + H),
+                   slice(radius + dx, radius + dx + W))
+            nb = pad_fast[win]
+            diff = staged - nb
+            w = ex2(fma(diff * diff, -scl, S))
+            s1f, s2f = fma(nb, w, s1f), s2f + w
+            nb = pad_raw[win]
+            ok = torch.isfinite(nb)
+            diff = d - nb
+            w = ex2(fma(diff * diff, -scl, S))
+            s1e = torch.where(ok, fma(nb, w, s1e), s1e)
+            s2e = torch.where(ok, s2e + w, s2e)
+    fast = bool(scl > 0) and bool(torch.isfinite(ssl))
+    fast = fast & (staged.abs() < 1e18)
+    s1 = torch.where(fast, s1f, s1e)
+    s2 = torch.where(fast, s2f, s2e)
+    out = s1 / torch.clamp(s2, min=1e-20)
+    return torch.where(d <= min_valid, 0.0, out)
+
+
+@pytest.mark.parametrize("radius,ss", [(2, 0.024691358 / 0.25 ** 2),
+                                       (6, 0.024691358)])
+def test_bilateral_kernel_arithmetic(radius, ss):
+    """The bilateral kernel's reformulated weight, rehearsed on the CPU,
+    against the JAX package's filter at atol 1e-5 on the 160x120 scene with
+    its zero holes, an inf and a NaN pixel."""
+    depth = _scene_depth()
+    depth[60, 80] = np.inf
+    depth[90, 20] = np.nan
+    ours = n(_bilateral_as_the_kernel(depth, radius, ss, 555.556, 0.03))
+    ref = n(jpp.bilateral_filter_depth(jnp.asarray(depth), radius=radius,
+                                       sigma_space2_inv_half=ss))
+    np.testing.assert_allclose(ours, ref, atol=1e-5)
+    assert ours[60, 80] == 0.0 and np.isnan(ours[90, 20])
 
 
 @pytest.mark.parametrize("case", ["constant", "step", "hole"])
