@@ -372,6 +372,14 @@ def predict_l0_scan(pos: torch.Tensor, normal: torch.Tensor,
 _OFFS8 = [(-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1)]
 
 
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a . b over the last axis of 3, summed ((a0 b0 + a1 b1) + a2 b2) as
+    the twin's sum rounds on the CPU; torch's CUDA reduction over that axis
+    sums in another order."""
+    return ((a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1])
+            + a[..., 2] * b[..., 2])
+
+
 def geometric_edge_map_plain(vmap: torch.Tensor, nmap: torch.Tensor,
                              weight_distance: float,
                              weight_concavity: float) -> torch.Tensor:
@@ -386,8 +394,8 @@ def geometric_edge_map_plain(vmap: torch.Tensor, nmap: torch.Tensor,
         v_n = shift(vmap, dy, dx, nan)
         n_n = shift(nmap, dy, dx, nan)
         # concavity (getConcavityTerm): 0 on the convex side
-        side = ((v_n - vmap) * nmap).sum(-1)
-        conc = 1.0 - (n_n * nmap).sum(-1)
+        side = _dot3(v_n - vmap, nmap)
+        conc = 1.0 - _dot3(n_n, nmap)
         conc = torch.where(side < 0, 0.0, conc)
         c_term = torch.maximum(c_term, torch.nan_to_num(conc, nan=0.0))
         # distance discontinuity (getDistanceTerm)

@@ -317,3 +317,171 @@ def test_wrappers_refuse_what_kernels_do_not_take(cuda_device):
         kernels.geometric_edge_map(v, v[:, :4])
     with pytest.raises(ValueError):
         kernels.geometric_edge_map(v.double(), v.double())
+
+
+# ---------------------------------------------------------------------------
+# kernel 3's tiling: a warp owns 30 columns and walks down a band of rows,
+# neighbours from the lanes beside; lanes and rows outside the image take
+# zeros (only the border reads them)
+
+def _edge_maps(h, w, device, holes=True, seed=5):
+    """Vertex and normal maps (the port's create_vmap / create_nmap) of a
+    wavy surface with step edges, h x w, with NaN holes from a seed (2% of
+    the pixels) and holes across the seams of the kernel's 30-column groups
+    (columns 28-31 and 58-61) and across every tenth row."""
+    v, u = np.mgrid[0:h, 0:w]
+    depth = (1.5 + 0.0004 * u + 0.0003 * v
+             + 0.08 * np.sin(u * 0.03) * np.cos(v * 0.04)).astype(np.float32)
+    depth[(u // 23 + v // 17) % 5 == 0] += np.float32(0.05)
+    if holes:
+        rng = np.random.default_rng(seed)
+        depth[rng.random((h, w)) < 0.02] = 0.0
+        seam = ((u >= 28) & (u <= 31)) | ((u >= 58) & (u <= 61))
+        depth[seam & (v % 7 < 2)] = 0.0
+        depth[(v % 10 >= 9) & (u % 13 < 4)] = 0.0
+    from maskfusion_tpu_torch.camera import CameraIntrinsics
+    from maskfusion_tpu_torch.ops import preprocess as pp
+
+    intr = CameraIntrinsics(0.825 * max(w, 2), 0.825 * max(w, 2), w / 2.0,
+                            h / 2.0)
+    vmap = pp.create_vmap(t(depth).to(device), intr, 5.0).contiguous()
+    return vmap, pp.create_nmap(vmap).contiguous()
+
+
+def _offset_copy(x, k):
+    """A contiguous copy of x whose data starts k floats past a fresh
+    allocation (so 4k bytes past a 16-byte boundary)."""
+    flat = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    view = flat[k:k + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4 * k % 16
+    return view
+
+
+def _hold_edge(vmap, nmap):
+    """Kernel 3 against its plain version (chip_smoke.check_edge_map); the
+    border and the invalid pixels exactly 1, as the plain version."""
+    before = kernels.geometric_edge_map.launches
+    out = kernels.geometric_edge_map(vmap, nmap, 150.0, 2.8)
+    torch.cuda.synchronize()
+    assert kernels.geometric_edge_map.launches == before + 1
+    ref = kernels.geometric_edge_map_plain(vmap, nmap, 150.0, 2.8)
+    chip_smoke.check_edge_map(out, ref)
+    h, w = out.shape
+    ones = torch.ones((h, w), dtype=torch.bool, device=out.device)
+    ones[1:-1, 1:-1] = False
+    ones |= ~torch.isfinite(vmap[..., 0]) | (vmap[..., 2] <= 0)
+    assert bool((out[ones] == 1.0).all()) and bool((ref[ones] == 1.0).all())
+    return out, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(1, 1), (2, 2), (1, 70), (70, 2)])
+def test_edge_map_kernel_all_border(cuda_device, h, w):
+    """Images with no interior pixel: every output is exactly 1."""
+    out, _ = _hold_edge(*_edge_maps(h, w, cuda_device, holes=False))
+    assert bool((out == 1.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [
+    (3, 3), (3, 64), (37, 53), (41, 641),
+    (30, 31), (17, 61),       # one column past one and two 30-column groups
+    (481, 640),               # one row past VGA: warps' shares cross the
+                              # end of a column group
+    (1081, 1921),             # bands of ~33 rows a warp
+])
+def test_edge_map_kernel_tiling(cuda_device, h, w):
+    """Shapes that hit every edge of the kernel's tiling: widths whose rows
+    (3 W floats) are no multiple of 16 bytes, part column groups, warps
+    whose rows cross the end of a column group, long bands; NaN holes
+    straddle the group seams and the rows."""
+    _hold_edge(*_edge_maps(h, w, cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(37, 53), (41, 641)])
+@pytest.mark.parametrize("kv,kn", [(1, 2), (2, 3), (3, 0), (0, 1)])
+def test_edge_map_kernel_unaligned_inputs(cuda_device, h, w, kv, kn):
+    """Maps that start 4, 8 or 12 bytes past a 16-byte boundary (contiguous
+    views at a storage offset), each map its own: the same output as the
+    aligned maps', bit for bit."""
+    vmap, nmap = _edge_maps(h, w, cuda_device)
+    aligned = kernels.geometric_edge_map(vmap, nmap, 150.0, 2.8)
+    out, _ = _hold_edge(_offset_copy(vmap, kv), _offset_copy(nmap, kn))
+    assert torch.equal(out, aligned)
+
+
+@pytest.mark.cuda
+def test_edge_map_kernel_all_invalid(cuda_device):
+    """An all-invalid map (no depth anywhere) is 1 everywhere."""
+    vmap, nmap = _edge_maps(37, 53, cuda_device)
+    vmap = torch.full_like(vmap, float("nan"))
+    vmap[..., 2] = 0.0
+    out, _ = _hold_edge(vmap, torch.full_like(nmap, float("nan")))
+    assert bool((out == 1.0).all())
+
+
+@pytest.mark.cuda
+def test_edge_map_kernel_nan_normal(cuda_device):
+    """A NaN normal beside finite vertices: its concavity terms are NaN and
+    count as 0 (the NaN -> 0 step), at the pixel and at its neighbours."""
+    vmap, nmap = _edge_maps(41, 641, cuda_device, holes=False)
+    nmap = nmap.clone()
+    for y, x in ((5, 63), (5, 64), (20, 128), (33, 300)):
+        nmap[y, x] = float("nan")
+    out, ref = _hold_edge(vmap, nmap)
+    near = torch.zeros_like(out, dtype=torch.bool)
+    for y, x in ((5, 63), (5, 64), (20, 128), (33, 300)):
+        near[y - 1:y + 2, x - 1:x + 2] = True
+    assert bool(torch.isfinite(ref[near]).all())
+    assert float((out - ref).abs()[near].max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# cold-L2 timing (chip_smoke.time_ms_cold): the copy arithmetic
+
+@pytest.mark.parametrize("nbytes,copies", [
+    (480 * 640 * 24, 11),         # the edge map's vmap + nmap at VGA
+    (480 * 640 * 4, 64),          # the bilateral filter's depth
+    (480 * 640 * 29, 9),          # the scan's pos, normal, radius, live
+    (1000, 78644),
+    (chip_smoke.L2_BYTES, 2),     # inputs as large as the L2 or larger
+    (3 * chip_smoke.L2_BYTES, 2),
+])
+def test_cold_copies_outgrow_the_l2(nbytes, copies):
+    """The rotation holds at least 1.5x the 50 MiB L2 and one copy fewer
+    would not; never fewer than 2 copies."""
+    n = chip_smoke.cold_copies(nbytes)
+    assert n == copies
+    l2 = chip_smoke.L2_BYTES
+    assert n * nbytes >= chip_smoke.COLD_L2_FACTOR * l2
+    assert n == 2 or (n - 1) * nbytes < chip_smoke.COLD_L2_FACTOR * l2
+    assert chip_smoke.cold_copies(nbytes, 2 * l2) >= n
+
+
+def test_cold_rotation_cycles_fresh_copies():
+    """Each call gives the next of n copies: distinct storage, equal
+    values, the non-tensor arguments shared; the (n+1)-th call the first
+    copy again."""
+    vmap = torch.arange(2 * 3 * 3, dtype=torch.float32).reshape(2, 3, 3)
+    live = torch.ones((2, 3), dtype=torch.bool)
+    args = (vmap, live, 150.0, 2)
+    assert chip_smoke.tensor_bytes(args) == 2 * 3 * 3 * 4 + 2 * 3
+    turn = chip_smoke.cold_rotation(args, 3)
+    got = [turn() for _ in range(4)]
+    ptrs = [g[0].data_ptr() for g in got]
+    assert len(set(ptrs[:3])) == 3 and ptrs[3] == ptrs[0]
+    assert vmap.data_ptr() not in ptrs
+    for g in got:
+        assert torch.equal(g[0], vmap) and torch.equal(g[1], live)
+        assert g[2:] == (150.0, 2)
+
+
+def test_hot_time_under_the_byte_bound_is_l2_resident():
+    """A hot time below the HBM byte time is labelled, not a share."""
+    rec = chip_smoke.edge_bound(torch.zeros((480, 640, 3)))
+    t_bytes = rec["bytes"] / chip_smoke.PEAK_BYTES_S * 1e3
+    assert chip_smoke.hot_label({**rec, "ms": 0.5 * t_bytes}) == "L2-resident"
+    assert chip_smoke.hot_label({**rec, "ms": 2 * t_bytes}) == \
+        "50% of the bound"

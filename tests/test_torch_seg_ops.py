@@ -76,6 +76,20 @@ def test_edge_map_cpu_wrapper_is_plain_version():
     assert kernels.geometric_edge_map.launches == before
 
 
+@pytest.mark.parametrize("two_objects", [False, True],
+                         ids=["one_object", "two_objects"])
+@pytest.mark.parametrize("wd,wc", [(150.0, 2.8), (40.0, 6.0)])
+def test_edge_map_plain_rounds_as_the_twin(two_objects, wd, wc):
+    """The plain version sums each dot product ((a0 b0 + a1 b1) + a2 b2), as
+    the XLA twin's sum rounds on the CPU (and as kernel 3 rounds): on the
+    CPU the two agree bit for bit, gate flips included."""
+    vmap, nmap = _maps(two_objects)
+    ours = n(kernels.geometric_edge_map_plain(t(vmap), t(nmap), wd, wc))
+    twin = np.asarray(jseg.geometric_edge_map(jnp.asarray(vmap),
+                                              jnp.asarray(nmap), wd, wc))
+    np.testing.assert_array_equal(ours, twin)
+
+
 @pytest.mark.parametrize("threshold", [0.1, 0.3, 0.9])
 def test_threshold_map_exact(threshold):
     vmap, nmap = _maps(True)
