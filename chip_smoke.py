@@ -41,9 +41,18 @@ stopped; any failure raises and exits non-zero):
      1 mm / 0.05 deg; up to frame 4, object poses within 8 mm and surfel
      counts within 1% (the bounds of the port's lockstep test against the
      JAX engine); the later frames, each run's object error against the
-     scene's motion and a card run from frame 0 are reported.
-The last lines are the card's nvidia-smi line, one JSON line of kernel
-records, and {"ok": true, "device": {...}}.
+     scene's motion and a card run from frame 0 are reported;
+  8. the -static CLI (maskfusion_tpu_torch.main) on a raw KLG log of phase
+     3's frames, as a user runs it and without OpenCV: one bilateral and
+     one scan launch a frame, TUM poses within 1 mm / 0.05 deg of phase 3's
+     direct run, a PLY cloud within 1% of its confident surfels; then again
+     with those poses as ground truth (-p): logged poses equal to their
+     inputs within 1e-5, the scan running on every frame;
+  9. the port bench's two lines (maskfusion_tpu_torch.bench): the
+     two-object synchronous frame and the static headline, each the median
+     of its timed windows.
+The last lines are the two bench lines, the card's nvidia-smi line, one
+JSON line of kernel records, and {"ok": true, "device": {...}}.
 
 The script imports nothing of JAX or of the JAX package, and refuses to run
 without a CUDA card or outside a checkout of the repository.
@@ -57,6 +66,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -218,67 +228,9 @@ def digest(t) -> str:
 
 
 # ---------------------------------------------------------------- inputs
-def make_frames(width: int, height: int, n: int):
-    """bench.py's make_frames (uint16 millimetre depth, textured rgb)."""
-    u, v = np.meshgrid(np.arange(width), np.arange(height))
-    frames = []
-    for i in range(n):
-        depth = (1.5 + 0.0004 * u + 0.0003 * v
-                 + 0.08 * np.sin(u * 0.03 + i * 0.02) * np.cos(v * 0.04)
-                 ).astype(np.float32)
-        depth_mm = np.round(depth * 1000.0).astype(np.uint16)
-        rgb = np.stack([(u * 3 + 5 * i) % 256, (v * 2) % 256, (u + v) % 256],
-                       -1).astype(np.uint8)
-        frames.append((rgb, depth_mm))
-    return frames
-
-
-def _rodrigues(rvec) -> np.ndarray:
-    theta = float(np.linalg.norm(rvec))
-    if theta < 1e-12:
-        return np.eye(3)
-    r = np.asarray(rvec) / theta
-    K = np.array([[0, -r[2], r[1]], [r[2], 0, -r[0]], [-r[1], r[0], 0]])
-    return np.eye(3) + np.sin(theta) * K + (1 - np.cos(theta)) * K @ K
-
-
-def render_points(pts, cols, pose_c2w, fx, fy, cx, cy, w, h, labels=None):
-    """Z-buffer point render of tests/synthetic.py and
-    maskfusion_tpu/tools/make_sequence.py: among the points within 0.5% of
-    a pixel's nearest depth, the one projecting closest to the pixel centre
-    wins.  Returns rgb uint8, metric depth (0 = empty)[, labels]."""
-    T = np.asarray(pose_c2w, np.float64)
-    p_cam = (pts - T[:3, 3]) @ T[:3, :3]
-    z = p_cam[:, 2]
-    with np.errstate(divide="ignore", invalid="ignore"):
-        uf = p_cam[:, 0] * fx / z + cx
-        vf = p_cam[:, 1] * fy / z + cy
-        u = np.round(uf).astype(np.int64)
-        v = np.round(vf).astype(np.int64)
-    ok = (z > 0.05) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
-    lin = v[ok] * w + u[ok]
-    zok = z[ok].astype(np.float32)
-    zbuf = np.full(h * w, np.inf, np.float32)
-    np.minimum.at(zbuf, lin, zok)
-    near = zok <= zbuf[lin] * (1 + 5e-3)
-    du = uf[ok] - np.round(uf[ok])
-    dv = vf[ok] - np.round(vf[ok])
-    key = np.where(near, (du * du + dv * dv).astype(np.float32), np.inf)
-    best = np.full(h * w, np.inf, np.float32)
-    np.minimum.at(best, lin, key)
-    win = near & (key <= best[lin])
-    rgb = np.zeros((h * w, 3), np.uint8)
-    rgb[lin[win]] = cols[ok][win]
-    depth = np.zeros(h * w, np.float32)
-    depth[lin[win]] = zok[win]
-    out = [rgb.reshape(h, w, 3), depth.reshape(h, w)]
-    if labels is not None:
-        lab = np.zeros(h * w, np.uint8)
-        lab[lin[win]] = labels[ok][win]
-        out.append(lab.reshape(h, w))
-    return tuple(out)
-
-
+# bench.py's frame generators (make_frames, make_two_object_frames) and the
+# point renderer live in maskfusion_tpu_torch.bench; the 160x120 scenes
+# below are tests/synthetic.py's
 def wavy_scene():
     """tests/synthetic.make_scene: a dense textured wavy surface ~2 m in
     front of the origin."""
@@ -302,11 +254,13 @@ SMALL = (130.0, 130.0, 80.0, 60.0, 160, 120)   # fx, fy, cx, cy, w, h
 def synthetic_trajectory(n: int = 6):
     """The wavy textured scene and camera path of tests/synthetic.py and
     tests/test_engine_static.py at 160x120."""
+    from maskfusion_tpu_torch.bench import render_points, rodrigues
+
     pts, cols = wavy_scene()
     poses = []
     for i in range(n):
         T = np.eye(4, dtype=np.float32)
-        T[:3, :3] = _rodrigues(np.array([0.0, 0.003 * i, 0.0009 * i]))
+        T[:3, :3] = rodrigues(np.array([0.0, 0.003 * i, 0.0009 * i]))
         T[:3, 3] = [0.004 * i, 0.0, -0.002 * i]
         poses.append(T)
     frames = [render_points(pts, cols, T, *SMALL) for T in poses]
@@ -318,6 +272,8 @@ def synthetic_two_objects(n: int = 7):
     tests/test_engine_multimodel.py:172-201 (static camera; object 1 moves
     along +x from frame 1, object 2 along -y from frame 2): rgb, metric
     depth and labels per frame."""
+    from maskfusion_tpu_torch.bench import render_points
+
     pts_bg, cols_bg = wavy_scene()
 
     def patch(cx, cy, phase, off):
@@ -346,77 +302,6 @@ def synthetic_two_objects(n: int = 7):
             np.concatenate([cols_bg, c1, c2]), np.eye(4), *SMALL,
             labels=labels))
     return frames
-
-
-def vga_camera_pose(s: float) -> np.ndarray:
-    """maskfusion_tpu/tools/make_sequence.camera_pose: an aggressive
-    smooth loop."""
-    w = 2 * np.pi * s
-    T = np.eye(4)
-    T[:3, :3] = _rodrigues(np.array([0.10 * np.sin(w + 0.5),
-                                     0.24 * np.sin(w),
-                                     0.08 * np.sin(2 * w)]))
-    T[:3, 3] = [0.22 * np.sin(w), 0.15 * np.sin(2 * w + 1.0),
-                0.10 * np.sin(w)]
-    return T
-
-
-def vga_points(width: int):
-    """maskfusion_tpu/tools/make_sequence.make_points: a dense wavy
-    background and a textured object patch, ~6 points a pixel at VGA."""
-    n_u = int(width * 3.4)
-    n_v = int(n_u * 0.8)
-    X, Y = np.meshgrid(np.linspace(-1.35, 1.35, n_u),
-                       np.linspace(-1.05, 1.05, n_v))
-    Z = 2.0 + 0.22 * np.sin(2.3 * X) * np.cos(1.9 * Y) + 0.06 * np.sin(7 * X)
-    pts_bg = np.stack([X, Y, Z], -1).reshape(-1, 3).astype(np.float32)
-    r = 127.5 + 90 * np.sin(9 * X) + 30 * np.cos(17 * Y)
-    g = 127.5 + 90 * np.cos(7 * Y) + 25 * np.sin(13 * X)
-    b = 127.5 + 80 * np.sin(5 * (X + Y))
-    cols_bg = np.stack([r, g, b], -1).reshape(-1, 3).clip(0, 255).astype(
-        np.uint8)
-    n = int(width * 1.6)
-    OX, OY = np.meshgrid(np.linspace(-0.28, 0.28, n),
-                         np.linspace(-0.21, 0.21, int(n * 0.75)))
-    OZ = 1.45 + 0.10 * np.sin(4.5 * OX) + 0.08 * np.cos(5.5 * OY)
-    pts_obj = np.stack([OX + 0.12, OY - 0.06, OZ], -1).reshape(-1, 3).astype(
-        np.float32)
-    orr = 127.5 + 110 * np.sin(15 * OX)
-    og = 127.5 + 110 * np.cos(12 * OY)
-    cols_obj = np.stack([orr, og, np.full_like(orr, 70.0)], -1).reshape(
-        -1, 3).clip(0, 255).astype(np.uint8)
-    return pts_bg, cols_bg, pts_obj, cols_obj
-
-
-def make_two_object_frames(width: int, height: int, n: int,
-                           count: int | None = None):
-    """bench.py's make_two_object_frames: a textured wavy background and
-    two independently moving textured patches under an aggressive camera
-    loop, uint16-millimetre depth and per-pixel labels with class ids
-    [0, 7, 8].  The motion spans `n` frames; the first `count` (all by
-    default) are rendered.  Returns (rgb, depth_mm, labels) per frame and
-    the intrinsics (fx, fy, cx, cy)."""
-    pts_bg, cols_bg, pts_o1, cols_o1 = vga_points(width)
-    pts_o2 = pts_o1 + np.array([-0.55, 0.18, 0.05], np.float32)
-    cols_o2 = cols_o1[:, ::-1]
-    labels = np.concatenate([np.zeros(len(pts_bg), np.uint8),
-                             np.full(len(pts_o1), 1, np.uint8),
-                             np.full(len(pts_o2), 2, np.uint8)])
-    cols = np.concatenate([cols_bg, cols_o1, cols_o2])
-    fx = fy = 0.825 * width
-    cx, cy = width / 2.0, height / 2.0
-    frames = []
-    for i in range(n if count is None else count):
-        s = i / max(n - 1, 1)
-        off1 = np.array([0.10 * np.sin(2 * np.pi * s), 0.0, 0.0], np.float32)
-        off2 = np.array([0.0, 0.06 * np.sin(2 * np.pi * s + 1.0), 0.0],
-                        np.float32)
-        pts = np.concatenate([pts_bg, pts_o1 + off1, pts_o2 + off2])
-        rgb, depth, lab = render_points(pts, cols, vga_camera_pose(0.25 * s),
-                                        fx, fy, cx, cy, width, height,
-                                        labels)
-        frames.append((rgb, np.round(depth * 1000.0).astype(np.uint16), lab))
-    return frames, (fx, fy, cx, cy)
 
 
 # depth-differing pixels stay under 3e-3 everywhere; winner ids flip on
@@ -698,7 +583,7 @@ def phase_kernels(dev, kernels, MaskFusion, Config, Resolution,
     records = []
     W, H = 640, 480
     # --- kernel 1 at the main path's shapes: VGA, R=6, zero holes
-    depth = frames[0][1].astype(np.float32) * np.float32(1e-3)
+    depth = frames[0].host_depth().copy()
     depth[100:140, 200:260] = 0.0
     depth[300:305, :] = 0.0
     depth[:, 500:502] = 0.0
@@ -733,7 +618,7 @@ def phase_kernels(dev, kernels, MaskFusion, Config, Resolution,
     eng = MaskFusion(Resolution(W, H), intr,
                      Config(static_mode=True,
                             global_surfel_capacity=1 << 22), device=dev)
-    eng.process_frame(FrameData(rgb=frames[0][0], depth=frames[0][1]))
+    eng.process_frame(frames[0])
     st = eng.global_model.state
     im = splat_ops.render_index_map(
         st.map, se3.pose_inverse(st.pose), intr, H, W, 1.0,
@@ -756,42 +641,27 @@ def phase_kernels(dev, kernels, MaskFusion, Config, Resolution,
 def phase_engine(dev, kernels, MaskFusion, Config, Resolution,
                  CameraIntrinsics, FrameData, frames, n_warm, n_timed,
                  n_stage):
-    import torch
+    from maskfusion_tpu_torch import bench
 
     W, H = 640, 480
     cfg = Config(static_mode=True, global_surfel_capacity=1 << 22)
     engine = MaskFusion(Resolution(W, H),
                         CameraIntrinsics(528.0, 528.0, 320.0, 240.0), cfg,
                         device=dev)
-    fd = [FrameData(rgb=rgb, depth=d, timestamp=float(i))
-          for i, (rgb, d) in enumerate(frames)]
     n_main = n_warm + n_timed
-    # the main path: every launch count starts at 0 here
+    # the main path: every launch count starts at 0 here; the frames run as
+    # the port bench runs them, one timed window
     kernels.reset_launch_counts()
-    t_start = time.perf_counter()
-    for f in fd[:n_warm]:
-        engine.process_frame(f)
-    engine.flush_diagnostics()
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t_start
-
     t0 = time.perf_counter()
-    staged = engine.upload_frame(fd[n_warm])
-    for nxt in fd[n_warm + 1:n_main]:
-        nxt_staged = engine.upload_frame(nxt)
-        engine.process_frame(staged)
-        staged = nxt_staged
-    engine.process_frame(staged)
-    diag = engine.flush_diagnostics()
-    torch.cuda.synchronize()
+    bench.warm_up(engine, frames[:n_warm])
+    (fps,) = bench.timed_windows(engine, frames[n_warm:n_main], n_timed, 1)
     total = time.perf_counter() - t0
     launches = {"bilateral_depth": kernels.bilateral_depth.launches,
                 "predict_l0_scan": kernels.predict_l0_scan.launches}
-    fps = n_timed / total
-    log(f"  warm-up {n_warm} frames in {warm_s:.2f} s; timed {n_timed} "
-        f"frames in {total:.3f} s = {fps:.2f} FPS")
+    surfels = engine.global_model.surfel_count
+    log(f"  {n_warm} warm-up and {n_timed} timed frames in {total:.2f} s; "
+        f"timed window {fps:.2f} FPS; {surfels} surfels")
     log(f"  launches over the {n_main} main-path frames: {launches}")
-    log(f"  diagnostics: {diag}")
     for name, count in launches.items():
         if count < n_main:
             raise AssertionError(
@@ -799,14 +669,17 @@ def phase_engine(dev, kernels, MaskFusion, Config, Resolution,
     pose = engine.current_pose
     if not np.isfinite(pose).all():
         raise AssertionError(f"non-finite pose:\n{pose}")
-    if not diag.get("surfels", 0) > 0:
-        raise AssertionError(f"empty map after the run: {diag}")
+    if not surfels > 0:
+        raise AssertionError("empty map after the run")
 
-    stage_ms, _ = stage_times(engine, fd[n_main:n_main + n_stage])
-    prof = profile_frames(engine, fd[n_main + n_stage:], 1000.0 / fps)
-    return {"fps": fps, "timed_s": total, "frames_timed": n_timed,
-            "stage_ms": stage_ms, "launches": launches,
-            "surfels": diag.get("surfels"), "profile": prof}
+    stage_ms, _ = stage_times(engine, frames[n_main:n_main + n_stage])
+    prof = profile_frames(engine, frames[n_main + n_stage:], 1000.0 / fps)
+    m = engine.download_map()
+    direct = {"poses": engine.pose_log_numpy(),
+              "confident_surfels": int(
+                  (m["conf"] > cfg.conf_threshold_global).sum())}
+    return {"fps": fps, "frames_timed": n_timed, "stage_ms": stage_ms,
+            "launches": launches, "surfels": surfels, "profile": prof}, direct
 
 
 def stage_times(engine, frames):
@@ -877,6 +750,18 @@ def profile_frames(engine, frames, wall_ms_per_frame: float):
 
 
 def _rot_deg(a, b) -> float:
+    """The angle between two rotations, from the chord |Ra - Rb|_F =
+    2 sqrt(2) sin(angle / 2): arccos of the trace loses ~0.02 deg to float32
+    rounding near 0."""
+    chord = np.linalg.norm(np.asarray(a, np.float64)[:3, :3]
+                           - np.asarray(b, np.float64)[:3, :3])
+    return float(np.degrees(2 * np.arcsin(min(1.0, chord / 8 ** 0.5))))
+
+
+def _rot_deg_trace(a, b) -> float:
+    """The same angle as arccos((tr(Ra^T Rb) - 1) / 2), the formula phase 4
+    read before the chord's: logged beside it there, so the margin of the
+    0.05 deg gate reads in both."""
     return float(np.degrees(np.arccos(np.clip(
         (np.trace(a[:3, :3].T @ b[:3, :3]) - 1) / 2, -1, 1))))
 
@@ -903,17 +788,19 @@ def phase_parity(dev, MaskFusion, Config, Resolution, CameraIntrinsics,
     dpos = max(np.linalg.norm(a[:3, 3] - b[:3, 3])
                for a, b in zip(card, cpu))
     drot = max(_rot_deg(a, b) for a, b in zip(card, cpu))
+    drot_trace = max(_rot_deg_trace(a, b) for a, b in zip(card, cpu))
     ate = float(np.sqrt(np.mean([np.sum((a[:3, 3] - gt[:3, 3]) ** 2)
                                  for a, gt in zip(card, poses)])))
     log(f"  card vs CPU: max pose difference {dpos * 1e3:.4f} mm, "
-        f"{drot:.5f} deg; ATE on the card {ate * 1e3:.3f} mm")
+        f"{drot:.5f} deg ({drot_trace:.5f} deg by arccos of the trace); "
+        f"ATE on the card {ate * 1e3:.3f} mm")
     if not (dpos <= 1e-3 and drot <= 0.05):
         raise AssertionError(f"card and CPU poses differ: {dpos} m, "
                              f"{drot} deg")
     if not ate < 5e-3:
         raise AssertionError(f"ATE {ate} m >= 5 mm")
     return {"max_pose_diff_m": dpos, "max_rot_diff_deg": drot,
-            "ate_m": ate}
+            "max_rot_diff_deg_trace": drot_trace, "ate_m": ate}
 
 
 def multiobject_config(Config, **kw):
@@ -942,9 +829,8 @@ def phase_edge_kernel(dev, kernels, MaskFusion, Config, Resolution,
     W, H = 640, 480
     eng = MaskFusion(Resolution(W, H), CameraIntrinsics(*intr),
                      vga_multiobject_config(Config), device=dev)
-    rgb, depth_mm, _ = frame
-    depth = torch.from_numpy(depth_mm.astype(np.float32) * np.float32(1e-3))
-    prep = eng.preprocess(torch.from_numpy(rgb).to(dev), depth.to(dev),
+    depth = torch.from_numpy(frame.host_depth())
+    prep = eng.preprocess(torch.from_numpy(frame.rgb).to(dev), depth.to(dev),
                           torch.zeros((H, W), dtype=torch.uint8, device=dev))
     vmap = prep.levels[0]["vmap"].contiguous()
     nmap = prep.levels[0]["nmap"].contiguous()
@@ -999,23 +885,20 @@ def phase_multiobject(dev, kernels, MaskFusion, Config, Resolution,
     W, H = 640, 480
     engine = MaskFusion(Resolution(W, H), CameraIntrinsics(*intr),
                         vga_multiobject_config(Config), device=dev)
-    fd = [FrameData(rgb=rgb, depth=d, mask=lab, class_ids=[0, 7, 8],
-                    timestamp=float(i))
-          for i, (rgb, d, lab) in enumerate(frames)]
     n_main = n_warm + n_timed
     n_models = []
     # the main path: every launch count starts at 0 here
     kernels.reset_launch_counts()
     t_start = time.perf_counter()
-    for f in fd[:n_warm]:
+    for f in frames[:n_warm]:
         engine.process_frame(f)
         n_models.append(len(engine.models))
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t_start
 
     t0 = time.perf_counter()
-    staged = engine.upload_frame(fd[n_warm])
-    for nxt in fd[n_warm + 1:n_main]:
+    staged = engine.upload_frame(frames[n_warm])
+    for nxt in frames[n_warm + 1:n_main]:
         nxt_staged = engine.upload_frame(nxt)
         engine.process_frame(staged)
         n_models.append(len(engine.models))
@@ -1068,8 +951,8 @@ def phase_multiobject(dev, kernels, MaskFusion, Config, Resolution,
                   engine.intr.fy, engine.intr.cx, engine.intr.cy,
                   engine.cfg.depth_cutoff), "object")
     del st, im
-    dev_ms, host_ms = stage_times(engine, fd[n_main:n_main + n_stage])
-    prof = profile_frames(engine, fd[n_main + n_stage:], 1000.0 / fps)
+    dev_ms, host_ms = stage_times(engine, frames[n_main:n_main + n_stage])
+    prof = profile_frames(engine, frames[n_main + n_stage:], 1000.0 / fps)
     return {"fps": fps, "timed_s": total, "frames_timed": n_timed,
             "stage_device_ms": dev_ms, "stage_host_ms": host_ms,
             "launches": launches, "launches_per_frame": {
@@ -1214,6 +1097,117 @@ def phase_multiobject_parity(dev, MaskFusion, Config, Resolution,
     return {"carried": rows, "from_frame_0": fresh_rows}
 
 
+def read_tum(path):
+    """A TUM pose file as (timestamps, 4x4 camera->world matrices)."""
+    from maskfusion_tpu_torch.io.ground_truth import GroundTruthOdometry
+
+    gt = GroundTruthOdometry(str(path))
+    stamps = [float(line.split()[0])
+              for line in Path(path).read_text().splitlines()]
+    return stamps, [gt.get_pose(t, relative_to_first=False).astype(
+        np.float64) for t in stamps]
+
+
+def phase_cli(kernels, frames, direct, workdir: Path):
+    """The -static CLI on the card, the way a user runs it
+    (maskfusion_tpu_torch.main on a .klg log, no OpenCV): a raw KLG log of
+    `frames` (distinct non-zero stamps), then
+
+    - the CLI with -ep -em: it returns 0; the bilateral and scan kernels
+      launch once a frame; poses-0.txt holds one line a frame, each within
+      1 mm / 0.05 deg of the direct engine run on the same frames
+      (`direct`, phase 3); cloud-0.ply loads, finite, with a count within
+      1% of the direct run's confident surfels;
+    - the CLI again with -p poses-0.txt: every logged pose equals its input
+      within 1e-5 (the TUM text round trip), and the scan runs on every
+      frame after the first (fuse, clean and predict of the general step).
+    """
+    import dataclasses
+
+    from maskfusion_tpu_torch import main as cli
+    from maskfusion_tpu_torch.io.export import load_ply
+    from maskfusion_tpu_torch.io.klg_reader import write_klg
+
+    n = len(frames)
+    if len(direct["poses"]) != n:
+        raise AssertionError(f"the direct run logged {len(direct['poses'])} "
+                             f"poses for {n} frames")
+    log_path = workdir / "static.klg"
+    stamped = [dataclasses.replace(f, timestamp=33333.0 * (i + 1))
+               for i, f in enumerate(frames + frames[-1:])]
+    # the KLG reader, as the reference's (KlgLogReader::hasMore), never
+    # returns a log's last frame: the log carries one frame more
+    write_klg(str(log_path), stamped, compress=False)
+    out = {"frames": n}
+    runs = (("static", ["-ep", "-em"]),
+            ("ground_truth", ["-ep", "-p", str(workdir / "static" /
+                                              "poses-0.txt")]))
+    for name, extra in runs:
+        export = workdir / name
+        argv = ["-l", str(log_path), "-static", "-q", "-exportdir",
+                str(export), "--global-capacity", str(1 << 22), *extra]
+        # each CLI run is a path of its own: its counts start at 0 here
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        seconds = time.perf_counter() - t0
+        launches = {"bilateral_depth": kernels.bilateral_depth.launches,
+                    "predict_l0_scan": kernels.predict_l0_scan.launches}
+        log(f"  CLI {name} ({' '.join(argv[4:])}): rc {rc}, {n} frames in "
+            f"{seconds:.2f} s, launches {launches}")
+        if rc != 0:
+            raise AssertionError(f"the {name} CLI returned {rc}")
+        if launches != {"bilateral_depth": n, "predict_l0_scan": n}:
+            raise AssertionError(f"the {name} CLI launched {launches} in "
+                                 f"{n} frames (one of each a frame expected)")
+        stamps, poses = read_tum(export / "poses-0.txt")
+        if len(poses) != n:
+            raise AssertionError(f"{name}: {len(poses)} poses for {n} frames")
+        out[name] = {"seconds": seconds, "launches": launches}
+        if name == "static":
+            dpos = max(np.linalg.norm(a[:3, 3] - b[:3, 3])
+                       for a, b in zip(poses, direct["poses"]))
+            drot = max(_rot_deg(a, b) for a, b in zip(poses, direct["poses"]))
+            cloud = load_ply(str(export / "cloud-0.ply"))
+            k, want = len(cloud["pos"]), direct["confident_surfels"]
+            log(f"  CLI against the direct engine run: max pose difference "
+                f"{dpos * 1e3:.4f} mm, {drot:.5f} deg; cloud-0.ply {k} "
+                f"surfels, direct run {want} above the confidence threshold")
+            if not (dpos <= 1e-3 and drot <= 0.05):
+                raise AssertionError(f"CLI and direct poses differ: {dpos} m, "
+                                     f"{drot} deg")
+            if not (np.isfinite(cloud["pos"]).all()
+                    and abs(k - want) <= 0.01 * want and k > 0):
+                raise AssertionError(f"cloud-0.ply: {k} surfels (direct run "
+                                     f"{want}) or non-finite positions")
+            inputs = (stamps, poses)
+            out[name].update(max_pose_diff_m=dpos, max_rot_diff_deg=drot,
+                             cloud_surfels=k, direct_surfels=want)
+        else:
+            err = max(float(np.abs(a - b).max())
+                      for a, b in zip(poses, inputs[1]))
+            log(f"  ground-truth run: logged poses within {err:.2e} of their "
+                "inputs")
+            if stamps != inputs[0] or not err <= 1e-5:
+                raise AssertionError(f"ground-truth poses differ from their "
+                                     f"inputs by {err} (bound 1e-5)")
+            out[name]["max_abs_pose_err"] = err
+    return out
+
+
+def phase_bench(dev, frames, mo_frames, intr):
+    """The port bench's two lines (maskfusion_tpu_torch.bench), on the
+    frames rendered above."""
+    from maskfusion_tpu_torch import bench
+
+    lines = [bench.bench_two_objects(dev, mo_frames, intr),
+             bench.bench_static(dev, frames)]
+    for line in lines:
+        log(f"  {line['metric']}: {line['value']} {line['unit']} (windows "
+            f"{line['reps']})")
+    return lines
+
+
 def main() -> int:
     import torch
 
@@ -1250,16 +1244,23 @@ def main() -> int:
                 or line.startswith("==")):
             log("  " + line.strip())
 
+    from maskfusion_tpu_torch import bench
+
     n_warm, n_timed, n_stage, n_prof = 8, 20, 6, 3
-    frames = make_frames(640, 480, n_warm + n_timed + n_stage + n_prof)
+    n_static = n_warm + n_timed + n_stage + n_prof
+    # bench.py's static frames: phases 2-3 and 8 take the first n_static,
+    # the bench all of them
+    all_frames = bench.make_frames(640, 480,
+                                   max(n_static, bench.STATIC_FRAMES))
+    frames = all_frames[:n_static]
     log("phase 2: kernels against their plain versions at 640x480")
     records = phase_kernels(dev, kernels, MaskFusion, Config, Resolution,
                             CameraIntrinsics, FrameData, frames)
 
     log("phase 3: the -static engine at 640x480, 2^22 surfels")
-    run = phase_engine(dev, kernels, MaskFusion, Config, Resolution,
-                       CameraIntrinsics, FrameData, frames, n_warm, n_timed,
-                       n_stage)
+    run, direct = phase_engine(dev, kernels, MaskFusion, Config, Resolution,
+                               CameraIntrinsics, FrameData, frames, n_warm,
+                               n_timed, n_stage)
     for rec in records:
         rec["launches"] = run["launches"][rec["name"]]
         log(f"  {rec['name']}: {rec['launches']} launches in the run, "
@@ -1270,14 +1271,15 @@ def main() -> int:
     parity = phase_parity(dev, MaskFusion, Config, Resolution,
                           CameraIntrinsics, FrameData)
 
-    # bench.py's two-object sequence spans 14 + 3 x 12 frames; the run
-    # takes its first 32
+    # bench.py's two-object sequence spans 14 + 3 x 12 frames: the bench
+    # runs them all, phase 6 the first 32
     mo_warm, mo_timed, mo_stage, mo_prof = 14, 12, 4, 2
     t_render = time.perf_counter()
-    mo_frames, intr = make_two_object_frames(
-        640, 480, 50, mo_warm + mo_timed + mo_stage + mo_prof)
+    all_mo_frames, intr = bench.make_two_object_frames(
+        640, 480, bench.TWO_OBJECT_FRAMES)
+    mo_frames = all_mo_frames[:mo_warm + mo_timed + mo_stage + mo_prof]
     log(f"phase 5: kernel 3 against its plain version at 640x480 "
-        f"({len(mo_frames)} two-object frames rendered in "
+        f"({len(all_mo_frames)} two-object frames rendered in "
         f"{time.perf_counter() - t_render:.1f} s)")
     records.append(phase_edge_kernel(dev, kernels, MaskFusion, Config,
                                      Resolution, CameraIntrinsics,
@@ -1304,12 +1306,29 @@ def main() -> int:
         "against CPU")
     mo_parity = phase_multiobject_parity(dev, MaskFusion, Config, Resolution,
                                          CameraIntrinsics, FrameData)
+
+    log(f"phase 8: the -static CLI on the card ({n_static} frames of a raw "
+        "KLG log), with and without ground-truth poses")
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as workdir:
+        cli_run = phase_cli(kernels, frames, direct, Path(workdir))
+    for rec in records:
+        rec["launches_by_path"].update({
+            f"cli_{k}": cli_run[k]["launches"].get(rec["name"], 0)
+            for k in ("static", "ground_truth")})
+
+    log("phase 9: the port bench (python -m maskfusion_tpu_torch.bench)")
+    bench_lines = phase_bench(dev, all_frames, all_mo_frames, intr)
     torch.cuda.synchronize()
     log(f"engine: {json.dumps({k: v for k, v in run.items()})}")
     log(f"parity: {json.dumps(parity)}")
     log(f"multiobject: {json.dumps(mo_run)}")
     log(f"multiobject parity: {json.dumps(mo_parity)}")
+    log(f"cli: {json.dumps(cli_run)}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
+    for line in bench_lines:
+        print(json.dumps(line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,11 +12,19 @@ Port of ``maskfusion_tpu/engine.py`` (ref Core/MaskFusion.{h,cpp}):
   global model then each object model, project all models' ids, segment
   (edge map on the device, label rules on the host), spawn / inactivate
   models, then fuse, clean and predict each model in turn.
+- ``process_frame(frame, gt_pose=...)`` in either mode: the same general
+  step with the global pose set to the given ground-truth pose in place of
+  its track (objects are still tracked); in static mode it skips the
+  segmentation.
+
+The stopwatch times the host's dispatch of each stage (``Preprocess``,
+``odom``, ``segmentation``, ``fuse``, ``Run``; the -static fast path records
+only ``Run``), and ``Config.diag_export_dir`` writes the per-frame metrics
+CSV and alignment-error images (utils/diag_export).
 
 The pipelined multi-object schedule, the batched and windowed object passes,
-the Co-Fusion segmenter, redetection, relocalisation and ground-truth pose
-injection come with later slices; asking for them raises
-NotImplementedError.
+the Co-Fusion segmenter, redetection and relocalisation come with later
+slices; asking for them raises NotImplementedError.
 
 The JAX package jits each stage, donates the map buffers and prewarms its
 compile cache.  PyTorch runs eagerly, so none of that has a counterpart
@@ -30,6 +38,7 @@ object->world pose is global_pose @ inverse(object_pose).
 from __future__ import annotations
 
 import dataclasses
+import time as _time
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -48,6 +57,7 @@ from maskfusion_tpu_torch.ops import splat as splat_ops
 from maskfusion_tpu_torch.segmentation import create_segmenter
 from maskfusion_tpu_torch.segmentation.mf_segmentation import ModelInfo
 from maskfusion_tpu_torch.tracking import odometry as odo
+from maskfusion_tpu_torch.utils.stopwatch import Stopwatch
 from maskfusion_tpu_torch.utils.tuning import get_tuning
 
 # Model ids are uint8 mask labels.  255 is the semantic-ignore label and 254
@@ -187,6 +197,15 @@ class MaskFusion:
         # (expiry tick, model id, spawn mask): phantom re-spawn claims, see
         # _segment_and_update_models
         self._recent_spawns: List = []
+        self.stopwatch = Stopwatch()
+        self._diag_exporter = None
+        if self.cfg.diag_export_dir:
+            from maskfusion_tpu_torch.utils.diag_export import \
+                DiagnosticExporter
+
+            self._diag_exporter = DiagnosticExporter(
+                self.cfg.diag_export_dir,
+                interval=self.cfg.diag_export_interval)
         self.segmenter = None
         if not self.cfg.static_mode:
             self.segmenter = create_segmenter(self.cfg.seg_method, self.cfg,
@@ -677,12 +696,17 @@ class MaskFusion:
 
     def process_frame(self, frame: FrameData,
                       gt_pose: Optional[np.ndarray] = None) -> Dict:
+        """One frame.  `gt_pose` (camera->world, e.g. from
+        io.ground_truth) replaces the global track (the -p flag,
+        MainController.cpp:458-462)."""
         self.tick += 1
+        t0 = _time.perf_counter()
         cfg = self.cfg
         rgb, depth = self._device_frame(frame)
         if not self.models:
             prev_seg = self._prev_seg()
-            prep = self.preprocess(rgb, depth, prev_seg)
+            with self.stopwatch.scope("Preprocess"):
+                prep = self.preprocess(rgb, depth, prev_seg)
             pose0 = torch.as_tensor(
                 (gt_pose if gt_pose is not None else np.eye(4))
                 .astype(np.float32), device=self.device)
@@ -697,12 +721,8 @@ class MaskFusion:
             self._log_poses(frame)
             return {"tick": self.tick, "surfels": self._last_count,
                     "tracking_ok": True, "n_models": 1}
-        if gt_pose is not None:
-            raise NotImplementedError(
-                "ground-truth pose injection is not ported yet (ROADMAP "
-                "queue 1 item 7)")
-        if not cfg.static_mode:
-            return self._multiobject_step(frame, rgb, depth)
+        if gt_pose is not None or not cfg.static_mode:
+            return self._general_step(frame, rgb, depth, gt_pose, t0)
 
         # -static fast path: one step, no per-frame host sync
         glob = self.models[0]
@@ -728,14 +748,22 @@ class MaskFusion:
                "n_models": 1, "tracking_ok": self._last_tracking_ok}
         if self.tick % self.DIAG_INTERVAL == 0:
             out.update(self.flush_diagnostics())
+        self.stopwatch.record("Run", (_time.perf_counter() - t0) * 1000)
+        if self._diag_exporter:
+            self._diag_exporter.record(self, out)
         return out
 
-    def _multiobject_step(self, frame: FrameData, rgb, depth) -> Dict:
-        """The synchronous multi-object frame (engine.py:1154-1165,
-        1236-1377 of the JAX package)."""
+    def _general_step(self, frame: FrameData, rgb, depth,
+                      gt_pose: Optional[np.ndarray], t0: float) -> Dict:
+        """The synchronous multi-object frame, and any frame with a
+        ground-truth pose (engine.py:1154-1165, 1236-1377 of the JAX
+        package).  In static mode there are no object models and the
+        segmentation is skipped: the frame fuses with an all-zero mask."""
         cfg = self.cfg
+        H, W = self.res.height, self.res.width
         self._mark("start")
-        prep = self.preprocess(rgb, depth, self._prev_seg())
+        with self.stopwatch.scope("Preprocess"):
+            prep = self.preprocess(rgb, depth, self._prev_seg())
         self._mark("preprocess")
 
         # ---------------- tracking (MaskFusion.cpp:240-278) ----------------
@@ -743,45 +771,62 @@ class MaskFusion:
         glob = self.models[0]
         for model in self.models:
             model.prev_pose = model.state.pose
-        glob_prev_pose = glob.state.pose
-        tr = self.track(glob.state, prep, 0)
-        glob.state = glob.state._replace(pose=tr.pose)
-        warm = (se3.pose_inverse(glob_prev_pose) @ tr.pose
-                if cfg.object_warm_start else None)
-        cov_max, icp_error, icp_count = torch.stack(
-            [tr.cov_diag.max(), tr.icp_error, tr.icp_count]).tolist()
-        tracking_ok = cov_max <= self._cov_thresh
-        diag.update(icp_error=icp_error, icp_count=icp_count)
+        with self.stopwatch.scope("odom"):
+            glob_prev_pose = glob.state.pose
+            if gt_pose is None:
+                tr = self.track(glob.state, prep, 0)
+                new_pose = tr.pose
+                cov_max, icp_error, icp_count = torch.stack(
+                    [tr.cov_diag.max(), tr.icp_error, tr.icp_count]).tolist()
+                tracking_ok = cov_max <= self._cov_thresh
+                diag.update(icp_error=icp_error, icp_count=icp_count)
+            else:
+                new_pose = torch.as_tensor(
+                    np.asarray(gt_pose, np.float32), device=self.device)
+                tracking_ok = True
+            glob.state = glob.state._replace(pose=new_pose)
+            warm = (se3.pose_inverse(glob_prev_pose) @ new_pose
+                    if cfg.object_warm_start else None)
 
-        trackable = cfg.trackable_classes
-        jumps = []
-        for model in list(self.models[1:]):
-            if trackable and model.class_id not in trackable:
-                # an untracked object mirrors the camera (Model.h:263-268)
-                model.state = model.state._replace(pose=torch.as_tensor(
-                    model.initial_c2w_inv, device=self.device) @ tr.pose)
-                continue
-            trm = self.track(model.state, prep, model.model_id,
-                             is_object=True, warm=warm)
-            model.state = model.state._replace(pose=trm.pose)
-            jumps.append((model, torch.linalg.vector_norm(trm.delta[:3, 3])))
-        if jumps:
-            # one host sync for all jump checks (MaskFusion.cpp:267-272)
-            norms = torch.stack([j for _, j in jumps]).tolist()
-            for (model, _), jump in zip(jumps, norms):
-                if jump > cfg.model_deactivate_jump:
-                    self._inactivate_model(model, "movement")
+            trackable = cfg.trackable_classes
+            jumps = []
+            for model in list(self.models[1:]):
+                if trackable and model.class_id not in trackable:
+                    # an untracked object mirrors the camera
+                    # (Model.h:263-268)
+                    model.state = model.state._replace(pose=torch.as_tensor(
+                        model.initial_c2w_inv, device=self.device)
+                        @ new_pose)
+                    continue
+                trm = self.track(model.state, prep, model.model_id,
+                                 is_object=True, warm=warm)
+                model.state = model.state._replace(pose=trm.pose)
+                jumps.append((model,
+                              torch.linalg.vector_norm(trm.delta[:3, 3])))
+            if jumps:
+                # one host sync for all jump checks (MaskFusion.cpp:267-272)
+                norms = torch.stack([j for _, j in jumps]).tolist()
+                for (model, _), jump in zip(jumps, norms):
+                    if jump > cfg.model_deactivate_jump:
+                        self._inactivate_model(model, "movement")
         self._mark("track")
 
-        # -------- global projection + segmentation (:289-296) --------
-        ids = self._project_ids_all(float(self.tick)).cpu().numpy()
-        self._mark("project")
-        seg_mask_np = self._segment_and_update_models(frame, prep, rgb, ids)
-        self._mark("lifecycle")
+        if cfg.static_mode:
+            seg_mask_np = np.zeros((H, W), np.uint8)
+            self.last_segmentation = seg_mask_np
+        else:
+            # -------- global projection + segmentation (:289-296) --------
+            with self.stopwatch.scope("segmentation"):
+                ids = self._project_ids_all(float(self.tick)).cpu().numpy()
+                self._mark("project")
+                seg_mask_np = self._segment_and_update_models(frame, prep,
+                                                              rgb, ids)
+            self._mark("lifecycle")
 
         # ---------------- fuse / clean / predict (:539-569) ----------------
         do_fuse = tracking_ok and not self.lost and not cfg.rgb_only
-        self._dispatch_fuse(prep, rgb, seg_mask_np, self.tick, do_fuse)
+        with self.stopwatch.scope("fuse"):
+            self._dispatch_fuse(prep, rgb, seg_mask_np, self.tick, do_fuse)
         self._mark("fuse")
 
         self._log_poses(frame)
@@ -790,6 +835,12 @@ class MaskFusion:
         diag.update(surfels=glob.surfel_count, n_models=len(self.models),
                     model_ids=[m.model_id for m in self.models],
                     tracking_ok=tracking_ok, lost=self.lost)
+        # a later -static fast-path frame sizes its bucket from this count
+        self._last_count = diag["surfels"]
+        self._frames_since_flush = 0
+        self.stopwatch.record("Run", (_time.perf_counter() - t0) * 1000)
+        if self._diag_exporter:
+            self._diag_exporter.record(self, diag, prep.levels[0]["vmap"])
         return diag
 
     def flush_diagnostics(self) -> Dict:

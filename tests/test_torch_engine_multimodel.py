@@ -278,15 +278,6 @@ def test_unported_configurations_raise(overrides, res):
                    Config(**{**BASE, **overrides}), device=CPU)
 
 
-def test_gt_pose_raises():
-    eng = make_engine()
-    rgb, depth, lab, _ = _two_object_frames(1)[0]
-    frame = FrameData(rgb=rgb, depth=depth, mask=lab, class_ids=[0, 7, 8])
-    eng.process_frame(frame)
-    with pytest.raises(NotImplementedError, match="ground-truth"):
-        eng.process_frame(frame, gt_pose=np.eye(4))
-
-
 # ------------------------------------------------------------- lockstep
 SLICE = dict(BASE, seg_method="maskfusion", pipelined_multiobject=False,
              batch_object_tracking=False, model_spawn_offset=0)

@@ -1,5 +1,6 @@
 """The port stands alone: importing it (or chip_smoke.py) loads neither jax
-nor the JAX package, and chip_smoke.py refuses to run without a card."""
+nor the JAX package, its -l path needs no OpenCV, and chip_smoke.py refuses
+to run without a card."""
 
 import json
 import os
@@ -33,6 +34,35 @@ import maskfusion_tpu_torch.segmentation.components
 import maskfusion_tpu_torch.segmentation.mf_segmentation
 import maskfusion_tpu_torch.segmentation.pre_segmentation
 import maskfusion_tpu_torch.segmentation.result
+import maskfusion_tpu_torch.main
+import maskfusion_tpu_torch.bench
+import maskfusion_tpu_torch.io.log_reader
+import maskfusion_tpu_torch.io.exr
+import maskfusion_tpu_torch.io.klg_reader
+import maskfusion_tpu_torch.io.image_reader
+import maskfusion_tpu_torch.io.ground_truth
+import maskfusion_tpu_torch.io.export
+import maskfusion_tpu_torch.utils.stopwatch
+import maskfusion_tpu_torch.utils.diag_export
+"""
+
+# the -l path needs no OpenCV (the card's machine has none): with cv2
+# unimportable, the CLI and the KLG reader import, and a raw log is written
+# and read back
+WITHOUT_CV2 = """
+sys.modules["cv2"] = None
+import tempfile, os
+import numpy as np
+import maskfusion_tpu_torch.main
+from maskfusion_tpu_torch.frame import FrameData
+from maskfusion_tpu_torch.io.klg_reader import KlgLogReader, write_klg
+path = os.path.join(tempfile.mkdtemp(), "raw.klg")
+rgb = np.arange(12 * 16 * 3, dtype=np.uint8).reshape(12, 16, 3)
+depth = np.arange(12 * 16, dtype=np.uint16).reshape(12, 16)
+write_klg(path, [FrameData(rgb=rgb, depth=depth, timestamp=5.0)] * 2,
+          compress=False)
+f = KlgLogReader(path, 16, 12).get_next()
+assert (f.rgb == rgb).all() and (f.depth == depth).all()
 """
 
 
@@ -50,7 +80,8 @@ def _run(code, cwd=ROOT, args=()):
     "spec = importlib.util.spec_from_file_location('chip_smoke', "
     "'chip_smoke.py')\n"
     "spec.loader.exec_module(importlib.util.module_from_spec(spec))",
-], ids=["package", "chip_smoke"])
+    WITHOUT_CV2,
+], ids=["package", "chip_smoke", "without_cv2"])
 def test_no_jax_loaded(imports):
     r = _run(_CHECK.format(imports=imports))
     assert r.returncode == 0, r.stderr

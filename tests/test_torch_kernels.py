@@ -485,3 +485,46 @@ def test_hot_time_under_the_byte_bound_is_l2_resident():
     assert chip_smoke.hot_label({**rec, "ms": 0.5 * t_bytes}) == "L2-resident"
     assert chip_smoke.hot_label({**rec, "ms": 2 * t_bytes}) == \
         "50% of the bound"
+
+
+@pytest.mark.cuda
+def test_cli_static_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """`python -m maskfusion_tpu_torch.main -l log.klg -static -ep -em` on a
+    160x120 raw KLG log, on the card: one bilateral and one scan launch a
+    frame, one TUM pose a frame, each within 1 mm of the same CLI's run on
+    the CPU (the log carries one frame more: the KLG reader, as the
+    reference's, never returns a log's last frame).  A .klg header holds no
+    frame size, so the default preset is set to the log's."""
+    from maskfusion_tpu_torch import camera
+    from maskfusion_tpu_torch.frame import FrameData
+    from maskfusion_tpu_torch.io.klg_reader import write_klg
+    from maskfusion_tpu_torch.main import main
+
+    _, frames, (fx, fy, cx, cy, _, _) = chip_smoke.synthetic_trajectory(4)
+    fd = [FrameData(rgb=rgb, depth=np.round(d * 1000).astype(np.uint16),
+                    timestamp=1000.0 * (i + 1))
+          for i, (rgb, d) in enumerate(frames)]
+    log = tmp_path / "seq.klg"
+    write_klg(str(log), fd + fd[-1:], compress=False)
+    h, w = fd[0].depth.shape
+    monkeypatch.setitem(camera.PRESETS, "default", (
+        camera.Resolution(w, h), camera.CameraIntrinsics(fx, fy, cx, cy)))
+    cal = tmp_path / "cal.txt"
+    cal.write_text(f"{fx} {fy} {cx} {cy}\n")
+    args = ["-l", str(log), "-static", "-q", "-nso", "-cal", str(cal),
+            "-ep", "-em", "--global-capacity", str(1 << 16)]
+    kernels.reset_launch_counts()
+    assert main([*args, "-exportdir", str(tmp_path / "card")]) == 0
+    assert kernels.bilateral_depth.launches == len(fd)
+    assert kernels.predict_l0_scan.launches == len(fd)
+    assert main([*args, "-exportdir", str(tmp_path / "cpu")],
+                device="cpu") == 0
+
+    def poses(side):
+        lines = (tmp_path / side / "poses-0.txt").read_text().splitlines()
+        return np.array([[float(v) for v in line.split()] for line in lines])
+
+    card, cpu = poses("card"), poses("cpu")
+    assert card.shape == cpu.shape == (len(fd), 8)
+    np.testing.assert_array_equal(card[:, 0], [f.timestamp for f in fd])
+    assert np.abs(card[:, 1:4] - cpu[:, 1:4]).max() <= 1e-3

@@ -1,7 +1,7 @@
 """How far the port's multi-object engine and the JAX engine drift apart
 over a longer lockstep run than tests/test_torch_engine_multimodel.py makes.
 
-    python -m tests.torch_lockstep_drift [frames] [camera step in m]
+    python -m tests.torch_lockstep_drift [frames] [camera step in m] [gt]
 
 The JAX engine runs the slice's configuration through both spawns (frames
 0-2) with its numpy segmentation path; its state crosses to the port
@@ -11,7 +11,9 @@ along +x by the given step a frame (default: 12 frames, still camera).
 Each frame prints the model ids of both, the global and object pose
 differences and the surfel counts; after the first port frame it also
 prints how many of the global map's slots differ by more than 1e-5 m in
-position.  On the CPU, a few minutes.
+position.  With ``gt`` both engines take each frame's camera pose as its
+ground-truth pose (``process_frame(..., gt_pose=...)``).  On the CPU, a
+few minutes.
 """
 
 from __future__ import annotations
@@ -37,8 +39,13 @@ from tests.test_torch_engine_multimodel import SLICE, _two_object_frames
 from tests.torch_helpers import CPU, tintr
 
 
-def main(n_frames: int = 12, cam_step: float = 0.0) -> None:
+def main(n_frames: int = 12, cam_step: float = 0.0,
+         ground_truth: bool = False) -> None:
     frames = _two_object_frames(n_frames, cam_step=cam_step)
+
+    def gt(i):
+        return frames[i][3].astype(np.float32) if ground_truth else None
+
     jnative._lib, jnative._tried = None, True      # the JAX numpy path
     jeng = JMaskFusion(JResolution(syn.W, syn.H), syn.DEFAULT_INTR,
                        JConfig(**SLICE))
@@ -49,13 +56,13 @@ def main(n_frames: int = 12, cam_step: float = 0.0) -> None:
                    timestamp=float(i))
 
     for i in range(3):
-        jeng.process_frame(frame_data(JFrameData, i))
+        jeng.process_frame(frame_data(JFrameData, i), gt_pose=gt(i))
     teng = MaskFusion(Resolution(syn.W, syn.H), tintr(syn.DEFAULT_INTR),
                       Config(**SLICE), device=CPU)
     restore_engine(teng, engine_snapshot(jeng))
     for i in range(3, n_frames):
-        dj = jeng.process_frame(frame_data(JFrameData, i))
-        dt = teng.process_frame(frame_data(FrameData, i))
+        dj = jeng.process_frame(frame_data(JFrameData, i), gt_pose=gt(i))
+        dt = teng.process_frame(frame_data(FrameData, i), gt_pose=gt(i))
         pj = [np.asarray(m.pose_log[-1]["pose"]) for m in jeng.models]
         pt = [teng.pose_log_numpy(k)[-1] for k in range(len(pj))]
         glob_mm = 1e3 * np.linalg.norm(pt[0][:3, 3] - pj[0][:3, 3])
@@ -78,4 +85,5 @@ def main(n_frames: int = 12, cam_step: float = 0.0) -> None:
 
 
 if __name__ == "__main__":
-    main(*(f(a) for f, a in zip((int, float), sys.argv[1:])))
+    main(*(f(a) for f, a in zip((int, float, lambda a: a == "gt"),
+                                 sys.argv[1:])))
