@@ -29,15 +29,23 @@ stopped; any failure raises and exits non-zero):
      (two builds that agree bit for bit print the same digests), timed as
      the others and beside one PyTorch call that only moves the same bytes
      (move_floor);
-  6. the synchronous multi-object engine at 640x480 (2^22 global and 2^19
-     object surfels) on bench.py's two-object frames: 14 warm-up and 12
-     timed frames, FPS, the three kernels' launch counts over that run, the
-     run reaching 3 models; kernel 2 on object 1's index map (live share,
-     check_scan, times); then per-stage device and host times (4 frames)
-     and a torch.profiler view (2 frames);
+  6. the synchronous multi-object engine at 640x480 in bench.py's
+     two-object configuration (2^22 global and 2^19 object surfels, two
+     object slots; objects tracked in one solve and fused in 320x320
+     windows) on bench.py's two-object frames: 14 warm-up and 12 timed
+     frames, FPS, the three kernels' launch counts over that run, the run
+     reaching 3 models, the frames whose objects fused in their windows;
+     kernel 2 on object 1's full-frame index map and on its window-shaped
+     one (320x320, principal point shifted; live share, check_scan,
+     times); then a torch.profiler view (2 frames) and one of the per-model
+     loop (batch_object_tracking=False, the next 2 frames on the same
+     engine): launches per frame of both forms side by side; then
+     per-stage device and host times (4 frames);
   7. 7 frames of a 160x120 two-object scene through the multi-object engine
-     on the CPU, and on the card from the CPU's state after both spawns:
-     per frame the same model and class ids and the global pose within
+     on the CPU, and on the card from the CPU's state after both spawns, in
+     two forms: the per-model loop, and the batched windowed passes (a
+     104-pixel window, margin 24, as tests/test_engine_pipelined.py): per
+     frame the same model and class ids and the global pose within
      1 mm / 0.05 deg; up to frame 4, object poses within 8 mm and surfel
      counts within 1% (the bounds of the port's lockstep test against the
      JAX engine); the later frames, each run's object error against the
@@ -49,8 +57,9 @@ stopped; any failure raises and exits non-zero):
      with those poses as ground truth (-p): logged poses equal to their
      inputs within 1e-5, the scan running on every frame;
   9. the port bench's two lines (maskfusion_tpu_torch.bench): the
-     two-object synchronous frame and the static headline, each the median
-     of its timed windows.
+     two-object synchronous frame (phase 6's configuration, with its
+     windowed frames) and the static headline, each the median of its timed
+     windows.
 The last lines are the two bench lines, the card's nvidia-smi line, one
 JSON line of kernel records, and {"ok": true, "device": {...}}.
 
@@ -94,6 +103,14 @@ EDGE_OPS_PER_PIXEL = 8 * EDGE_OPS_PER_NEIGHBOUR + 3   # 2 weights, the clamp
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_START = time.perf_counter()
+
+
+def log_phase(msg: str) -> None:
+    """A phase's header, with the seconds since the script started."""
+    log(f"{msg} [{time.perf_counter() - _START:.1f} s]")
 
 
 def nvidia_smi_line() -> str:
@@ -732,20 +749,32 @@ def profile_frames(engine, frames, wall_ms_per_frame: float):
         torch.cuda.synchronize()
     busy_us = 0.0
     calls: dict = {}
+    kernels: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            busy_us += e.time_range.elapsed_us()
+            us = e.time_range.elapsed_us()
+            busy_us += us
+            kernels[e.name] = kernels.get(e.name, 0.0) + us
         elif e.name.startswith("cuda"):
             calls[e.name] = calls.get(e.name, 0) + 1
     busy_ms = busy_us / 1e3 / n
+    waits = sum(calls.get(k, 0) for k in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize",
+        "cudaEventSynchronize"))
     out = {"frames": n, "device_busy_ms_per_frame": busy_ms,
            "device_busy_share": busy_ms / wall_ms_per_frame,
            "runtime_calls_per_frame": {k: v / n for k, v in sorted(
-               calls.items(), key=lambda kv: -kv[1])[:6]}}
+               calls.items(), key=lambda kv: -kv[1])[:6]},
+           "synchronises_per_frame": waits / n,
+           "top_kernels_ms_per_frame": {k[:80]: v / 1e3 / n for k, v in
+                                        sorted(kernels.items(),
+                                               key=lambda kv: -kv[1])[:4]}}
     log(f"  profile of {n} frames: device busy {busy_ms:.2f} ms/frame = "
         f"{out['device_busy_share']:.1%} of the unprofiled "
         f"{wall_ms_per_frame:.2f} ms/frame; runtime calls/frame "
-        f"{out['runtime_calls_per_frame']}")
+        f"{out['runtime_calls_per_frame']}; synchronises/frame "
+        f"{waits / n:.1f}; top kernels ms/frame "
+        f"{out['top_kernels_ms_per_frame']}")
     return out
 
 
@@ -804,20 +833,18 @@ def phase_parity(dev, MaskFusion, Config, Resolution, CameraIntrinsics,
 
 
 def multiobject_config(Config, **kw):
-    """The slice's configuration: the synchronous multi-object schedule
-    with the per-model loop and MaskFusion segmentation of the frame's
-    masks."""
+    """The synchronous multi-object schedule with MaskFusion segmentation
+    of the frame's masks."""
     return Config(static_mode=False, seg_method="maskfusion",
-                  pipelined_multiobject=False, batch_object_tracking=False,
-                  **kw)
+                  pipelined_multiobject=False, **kw)
 
 
-def vga_multiobject_config(Config):
+def vga_multiobject_config():
     """bench.py's two-object configuration (bench.py:201-211), switched to
-    the synchronous schedule."""
-    return multiobject_config(Config, global_surfel_capacity=1 << 22,
-                              object_surfel_capacity=1 << 19,
-                              model_spawn_offset=2)
+    the synchronous schedule: the port bench's."""
+    from maskfusion_tpu_torch import bench
+
+    return bench.two_object_config()
 
 
 def phase_edge_kernel(dev, kernels, MaskFusion, Config, Resolution,
@@ -828,7 +855,7 @@ def phase_edge_kernel(dev, kernels, MaskFusion, Config, Resolution,
 
     W, H = 640, 480
     eng = MaskFusion(Resolution(W, H), CameraIntrinsics(*intr),
-                     vga_multiobject_config(Config), device=dev)
+                     vga_multiobject_config(), device=dev)
     depth = torch.from_numpy(frame.host_depth())
     prep = eng.preprocess(torch.from_numpy(frame.rgb).to(dev), depth.to(dev),
                           torch.zeros((H, W), dtype=torch.uint8, device=dev))
@@ -879,12 +906,14 @@ def phase_edge_kernel(dev, kernels, MaskFusion, Config, Resolution,
 
 def phase_multiobject(dev, kernels, MaskFusion, Config, Resolution,
                       CameraIntrinsics, FrameData, frames, intr, n_warm,
-                      n_timed, n_stage):
+                      n_timed, n_stage, n_prof):
+    import dataclasses
+
     import torch
 
     W, H = 640, 480
     engine = MaskFusion(Resolution(W, H), CameraIntrinsics(*intr),
-                        vga_multiobject_config(Config), device=dev)
+                        vga_multiobject_config(), device=dev)
     n_main = n_warm + n_timed
     n_models = []
     # the main path: every launch count starts at 0 here
@@ -896,6 +925,7 @@ def phase_multiobject(dev, kernels, MaskFusion, Config, Resolution,
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t_start
 
+    windowed_warm = engine.windowed_fuses
     t0 = time.perf_counter()
     staged = engine.upload_frame(frames[n_warm])
     for nxt in frames[n_warm + 1:n_main]:
@@ -910,11 +940,17 @@ def phase_multiobject(dev, kernels, MaskFusion, Config, Resolution,
     launches = {k: getattr(kernels, k).launches for k in
                 ("bilateral_depth", "predict_l0_scan", "geometric_edge_map")}
     fps = n_timed / total
+    windowed = {"warm_up": windowed_warm,
+                "timed": engine.windowed_fuses - windowed_warm}
     log(f"  warm-up {n_warm} frames in {warm_s:.2f} s; timed {n_timed} "
         f"frames in {total:.3f} s = {fps:.2f} FPS")
     log(f"  models after each frame: {n_models}; last frame: {diag}")
     log(f"  launches over the {n_main} main-path frames: {launches}")
-    if max(n_models) != 3:
+    log(f"  frames whose objects fused in their windows: "
+        f"{windowed['warm_up']} of {n_warm} warm-up, {windowed['timed']} of "
+        f"{n_timed} timed; windows now "
+        f"{[m.window for m in engine.models[1:]]}")
+    if max(n_models) < 3:
         raise AssertionError(f"the run never held 3 models: {n_models}")
     # frame 1 initialises the global map: no tracking, no segmentation
     want = {"bilateral_depth": n_main, "geometric_edge_map": n_main - 1,
@@ -933,32 +969,68 @@ def phase_multiobject(dev, kernels, MaskFusion, Config, Resolution,
         raise AssertionError(f"an empty model map: {counts}")
     log(f"  model ids {[m.model_id for m in engine.models]}, classes "
         f"{[m.class_id for m in engine.models]}, surfels {counts}")
-    # kernel 2 on object 1's index map, rendered as phase 2 renders the
-    # global one; these launches come after the main path's counts
+    # kernel 2 on object 1's index map, full frame as phase 2 renders the
+    # global one and in its window as the windowed fuse renders it; these
+    # launches come after the main path's counts
     from maskfusion_tpu_torch import se3
     from maskfusion_tpu_torch.ops import splat as splat_ops
 
-    st = engine.models[1].state
-    im = splat_ops.render_index_map(
-        st.map, se3.pose_inverse(st.pose), engine.intr, H, W,
-        float(engine.tick), engine.cfg.effective_time_delta(),
-        engine.cfg.depth_cutoff)
-    if not bool((im.index >= 0).any()):
-        raise AssertionError("object 1's index map holds no live texel")
-    object_scan = scan_record(
-        kernels, (im.pos.contiguous(), im.normal.contiguous(),
-                  im.radius.contiguous(), im.index >= 0, engine.intr.fx,
-                  engine.intr.fy, engine.intr.cx, engine.intr.cy,
-                  engine.cfg.depth_cutoff), "object")
+    obj = engine.models[1]
+    st = obj.state
+    cfg = engine.cfg
+    scans = []
+    OW = engine._obj_window
+    views = [("object", engine.intr, H, W)]
+    if obj.window is not None:
+        oy, ox = obj.window
+        views.append((f"object window {OW}x{OW} at ({oy}, {ox})",
+                      engine._intr_shift(oy, ox), OW, OW))
+    elif windowed["timed"]:
+        raise AssertionError("object 1 has no window after windowed frames")
+    for which, k, h, w in views:
+        im = splat_ops.render_index_map(
+            st.map, se3.pose_inverse(st.pose), k, h, w, float(engine.tick),
+            cfg.effective_time_delta(), cfg.depth_cutoff)
+        if not bool((im.index >= 0).any()):
+            raise AssertionError(f"{which}: the index map holds no live "
+                                 "texel")
+        scans.append(scan_record(
+            kernels, (im.pos.contiguous(), im.normal.contiguous(),
+                      im.radius.contiguous(), im.index >= 0, k.fx, k.fy,
+                      k.cx, k.cy, cfg.depth_cutoff), which))
     del st, im
-    dev_ms, host_ms = stage_times(engine, frames[n_main:n_main + n_stage])
-    prof = profile_frames(engine, frames[n_main + n_stage:], 1000.0 / fps)
+    # the two profiler views first, while the main path's models are live
+    # (bench.py's scene spawns a fourth model near frame 31), then the stage
+    # times
+    rest = frames[n_main:]
+    models_in = [len(engine.models)]
+    prof = profile_frames(engine, rest[:n_prof], 1000.0 / fps)
+    # the per-model loop on the same engine: launches a frame side by side
+    models_in.append(len(engine.models))
+    engine.cfg = dataclasses.replace(cfg, batch_object_tracking=False)
+    prof_loop = profile_frames(engine, rest[n_prof:2 * n_prof],
+                               1000.0 / fps)
+    engine.cfg = cfg
+    models_in.append(len(engine.models))
+    dev_ms, host_ms = stage_times(engine,
+                                  rest[2 * n_prof:2 * n_prof + n_stage])
+    key = "cudaLaunchKernel"
+    per_frame = {
+        "batched_windowed": prof["runtime_calls_per_frame"].get(key, 0.0),
+        "per_model_loop": prof_loop["runtime_calls_per_frame"].get(key, 0.0),
+        "models_before_between_after": models_in}
+    log(f"  kernel launches a frame ({key}): batched and windowed "
+        f"{per_frame['batched_windowed']:.1f}, per-model loop "
+        f"{per_frame['per_model_loop']:.1f}; live models before, between "
+        f"and after the two views {models_in}")
     return {"fps": fps, "timed_s": total, "frames_timed": n_timed,
+            "windowed_frames": windowed,
             "stage_device_ms": dev_ms, "stage_host_ms": host_ms,
             "launches": launches, "launches_per_frame": {
                 k: v / n_main for k, v in launches.items()},
-            "n_models": n_models, "surfels": counts, "profile": prof}, \
-        object_scan
+            "n_models": n_models, "surfels": counts, "profile": prof,
+            "profile_per_model_loop": prof_loop,
+            "kernel_launches_per_frame": per_frame}, scans
 
 
 def _object_offset(class_id: int, i: int) -> np.ndarray:
@@ -1023,21 +1095,33 @@ def _compare_runs(card, cpu, first_frame: int, spawn: dict):
 OBJECT_HOLD_LAST_FRAME = 4
 
 
+# phase 7's two forms of the synchronous frame
+PARITY_FORMS = {
+    "per_model_loop": dict(batch_object_tracking=False),
+    # tests/test_engine_pipelined.py:19-33's window and margin
+    "batched_windowed": dict(object_window=104, object_window_margin=24,
+                             min_object_slots=2),
+}
+
+
 def phase_multiobject_parity(dev, MaskFusion, Config, Resolution,
-                             CameraIntrinsics, FrameData):
+                             CameraIntrinsics, FrameData, form: str):
     """The two-object scene of tests/test_engine_multimodel.py through the
-    multi-object engine on the CPU, frames 0-6.  As the port's lockstep test
-    against the JAX engine, the card starts from the CPU engine's state after
-    both spawns (frames 0-2, carried by convert.engine_snapshot /
-    restore_engine) and runs frames 3-6.  Held on every frame: the same
-    model and class ids, the global pose within 1 mm / 0.05 deg.  Held up to
-    OBJECT_HOLD_LAST_FRAME: object poses within 8 mm, surfel counts within
-    1%.  Reported: the later frames, each run's object error against the
-    scene's motion, and a card run from frame 0."""
+    multi-object engine on the CPU, frames 0-6, in one of PARITY_FORMS.  As
+    the port's lockstep test against the JAX engine, the card starts from
+    the CPU engine's state after both spawns (frames 0-2, carried by
+    convert.engine_snapshot / restore_engine) and runs frames 3-6.  Held on
+    every frame: the same model and class ids, the global pose within
+    1 mm / 0.05 deg.  Held up to OBJECT_HOLD_LAST_FRAME: object poses within
+    8 mm, surfel counts within 1%.  Reported: the later frames, each run's
+    object error against the scene's motion, and a card run from frame 0.
+    The batched form must fuse its objects in their windows on every frame
+    after the carry."""
     import torch
 
     from maskfusion_tpu_torch.convert import engine_snapshot, restore_engine
 
+    t0 = time.perf_counter()
     frames = synthetic_two_objects(7)
     fx, fy, cx, cy, w, h = SMALL
     carry_at = 3
@@ -1048,7 +1132,8 @@ def phase_multiobject_parity(dev, MaskFusion, Config, Resolution,
             multiobject_config(Config, global_surfel_capacity=1 << 16,
                                object_surfel_capacity=1 << 13,
                                model_spawn_offset=0, use_so3=False,
-                               open_loop=True), device=device)
+                               open_loop=True, **PARITY_FORMS[form]),
+            device=device)
 
     def stepper(eng):
         def step(i):
@@ -1066,6 +1151,10 @@ def phase_multiobject_parity(dev, MaskFusion, Config, Resolution,
     card_eng = engine(dev)
     restore_engine(card_eng, snap)
     carried = _run_records(stepper(card_eng), range(carry_at, len(frames)))
+    windowed = card_eng.windowed_fuses
+    if form == "batched_windowed" and windowed != len(frames) - carry_at:
+        raise AssertionError(f"{form}: {windowed} windowed frames of "
+                             f"{len(frames) - carry_at}")
     spawn = {}
     for i, rec in enumerate(cpu):
         for mid in rec[0]:
@@ -1076,9 +1165,12 @@ def phase_multiobject_parity(dev, MaskFusion, Config, Resolution,
     log(f"  models per frame {[len(a[0]) for a in cpu]}, ids {cpu[-1][0]}; "
         f"surfels after frame {len(frames) - 1}: CPU {cpu[-1][3]}, card "
         f"(carried) {carried[-1][3]}, card (from frame 0) {fresh[-1][3]}")
+    log(f"  {form}: windows {[m.window for m in card_eng.models[1:]]}, "
+        f"{windowed} windowed frames on the card after the carry; "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, rs in (("carried after the spawns", rows),
                      ("from frame 0", fresh_rows)):
-        log(f"  card vs CPU, {name}:")
+        log(f"  {form}, card vs CPU, {name}:")
         for r in rs:
             log(f"    frame {r['frame']}: global {r['global_m'] * 1e3:.4f} "
                 f"mm {r['global_deg']:.5f} deg; objects "
@@ -1094,7 +1186,8 @@ def phase_multiobject_parity(dev, MaskFusion, Config, Resolution,
             held = held and r["object_m"] <= 8e-3 and r["count_rel"] <= 0.01
         if not held:
             raise AssertionError(f"card and CPU runs differ: {r}")
-    return {"carried": rows, "from_frame_0": fresh_rows}
+    return {"carried": rows, "from_frame_0": fresh_rows,
+            "windowed_frames": windowed}
 
 
 def read_tum(path):
@@ -1203,8 +1296,10 @@ def phase_bench(dev, frames, mo_frames, intr):
     lines = [bench.bench_two_objects(dev, mo_frames, intr),
              bench.bench_static(dev, frames)]
     for line in lines:
+        extra = {k: line[k] for k in ("n_models", "n_models_end",
+                                      "windowed_frames") if k in line}
         log(f"  {line['metric']}: {line['value']} {line['unit']} (windows "
-            f"{line['reps']})")
+            f"{line['reps']}) {extra}")
     return lines
 
 
@@ -1228,14 +1323,14 @@ def main() -> int:
 
     t_all = time.perf_counter()
     dev = torch.device("cuda")
-    log("phase 0: the card")
+    log_phase("phase 0: the card")
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
     log(f"  nvidia-smi: {smi}")
     log(f"  torch: {torch.__version__} cuda {torch.version.cuda}; "
         f"device {name}; count {torch.cuda.device_count()}")
 
-    log("phase 1: build the kernels")
+    log_phase("phase 1: build the kernels")
     kernels.load_library()
     log(f"  built {kernels.library_path().name} in "
         f"{kernels.build_seconds:.1f} s")
@@ -1253,11 +1348,12 @@ def main() -> int:
     all_frames = bench.make_frames(640, 480,
                                    max(n_static, bench.STATIC_FRAMES))
     frames = all_frames[:n_static]
-    log("phase 2: kernels against their plain versions at 640x480")
+    log_phase("phase 2: kernels against their plain versions at "
+              "640x480")
     records = phase_kernels(dev, kernels, MaskFusion, Config, Resolution,
                             CameraIntrinsics, FrameData, frames)
 
-    log("phase 3: the -static engine at 640x480, 2^22 surfels")
+    log_phase("phase 3: the -static engine at 640x480, 2^22 surfels")
     run, direct = phase_engine(dev, kernels, MaskFusion, Config, Resolution,
                                CameraIntrinsics, FrameData, frames, n_warm,
                                n_timed, n_stage)
@@ -1267,30 +1363,30 @@ def main() -> int:
             f"{rec['ms_cold'] * 1e3:.2f} us per launch (cold L2) against a "
             f"bound of {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']})")
 
-    log("phase 4: 160x120 synthetic trajectory, card against CPU")
+    log_phase("phase 4: 160x120 synthetic trajectory, card against CPU")
     parity = phase_parity(dev, MaskFusion, Config, Resolution,
                           CameraIntrinsics, FrameData)
 
     # bench.py's two-object sequence spans 14 + 3 x 12 frames: the bench
-    # runs them all, phase 6 the first 32
+    # runs them all, phase 6 the first 34
     mo_warm, mo_timed, mo_stage, mo_prof = 14, 12, 4, 2
     t_render = time.perf_counter()
     all_mo_frames, intr = bench.make_two_object_frames(
         640, 480, bench.TWO_OBJECT_FRAMES)
-    mo_frames = all_mo_frames[:mo_warm + mo_timed + mo_stage + mo_prof]
-    log(f"phase 5: kernel 3 against its plain version at 640x480 "
-        f"({len(all_mo_frames)} two-object frames rendered in "
-        f"{time.perf_counter() - t_render:.1f} s)")
+    mo_frames = all_mo_frames[:mo_warm + mo_timed + mo_stage + 2 * mo_prof]
+    log_phase(f"phase 5: kernel 3 against its plain version at 640x480 "
+              f"({len(all_mo_frames)} two-object frames rendered in "
+              f"{time.perf_counter() - t_render:.1f} s)")
     records.append(phase_edge_kernel(dev, kernels, MaskFusion, Config,
                                      Resolution, CameraIntrinsics,
                                      mo_frames[0], intr))
 
-    log("phase 6: the synchronous multi-object engine at 640x480, 2^22 + "
-        "2 x 2^19 surfels")
-    mo_run, object_scan = phase_multiobject(
+    log_phase("phase 6: the synchronous multi-object engine at 640x480, "
+              "2^22 + 2 x 2^19 surfels, batched and windowed object passes")
+    mo_run, object_scans = phase_multiobject(
         dev, kernels, MaskFusion, Config, Resolution, CameraIntrinsics,
-        FrameData, mo_frames, intr, mo_warm, mo_timed, mo_stage)
-    records.append(object_scan)
+        FrameData, mo_frames, intr, mo_warm, mo_timed, mo_stage, mo_prof)
+    records.extend(object_scans)
     for rec in records:
         rec["launches_by_path"] = {
             "static": run["launches"].get(rec["name"], 0),
@@ -1302,13 +1398,14 @@ def main() -> int:
             f"{rec['ms_cold'] * 1e3:.2f} us per launch (cold L2) against a "
             f"bound of {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']})")
 
-    log("phase 7: 160x120 two-object scene, multi-object engine, card "
-        "against CPU")
-    mo_parity = phase_multiobject_parity(dev, MaskFusion, Config, Resolution,
-                                         CameraIntrinsics, FrameData)
+    log_phase("phase 7: 160x120 two-object scene, multi-object engine, "
+              "card against CPU")
+    mo_parity = {form: phase_multiobject_parity(
+        dev, MaskFusion, Config, Resolution, CameraIntrinsics, FrameData,
+        form) for form in PARITY_FORMS}
 
-    log(f"phase 8: the -static CLI on the card ({n_static} frames of a raw "
-        "KLG log), with and without ground-truth poses")
+    log_phase(f"phase 8: the -static CLI on the card ({n_static} frames of "
+              "a raw KLG log), with and without ground-truth poses")
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as workdir:
@@ -1318,7 +1415,8 @@ def main() -> int:
             f"cli_{k}": cli_run[k]["launches"].get(rec["name"], 0)
             for k in ("static", "ground_truth")})
 
-    log("phase 9: the port bench (python -m maskfusion_tpu_torch.bench)")
+    log_phase("phase 9: the port bench (python -m "
+              "maskfusion_tpu_torch.bench)")
     bench_lines = phase_bench(dev, all_frames, all_mo_frames, intr)
     torch.cuda.synchronize()
     log(f"engine: {json.dumps({k: v for k, v in run.items()})}")

@@ -8,11 +8,13 @@ format (``metric``, ``value``, ``unit``, ``vs_baseline`` against the 30 FPS
 real-time target, ``reps``), plus ``device``, the card's nvidia-smi name and
 power limit:
 
-- ``slam_fps_640x480_two_objects_sync``: bench.py's two-object scene and
-  capacities in the synchronous schedule (the port has no pipelined one
-  yet); 14 warm-up frames, then the median of 3 windows of 12 frames; with
-  the live models after the warm-up (``n_models``, as bench.py) and at the
-  end (``n_models_end``);
+- ``slam_fps_640x480_two_objects_sync``: bench.py's two-object
+  configuration in the synchronous schedule (the port has no pipelined one
+  yet), with its batched object tracking, 320-pixel object windows and two
+  object slots; 14 warm-up frames, then the median of 3 windows of 12
+  frames; with the live models after the warm-up (``n_models``, as
+  bench.py) and at the end (``n_models_end``), and how many timed frames
+  fused their objects in their windows (``windowed_frames``);
 - ``slam_fps_640x480_static``, printed last: bench.py's headline, the
   -static frame with a 2^22-surfel map; 8 warm-up frames, then the median of
   5 windows of 20 frames (five rather than bench.py's three: one run's
@@ -265,16 +267,16 @@ def static_config():
 
 
 def two_object_config():
-    """bench.py's two-object configuration (bench.py:201-211) in the
-    synchronous schedule with the per-model loop: the pipelined schedule,
-    the batched object passes and min_object_slots are not ported yet
-    (ROADMAP queue 1 items 8-9)."""
+    """bench.py's two-object configuration (bench.py:201-211) with only the
+    schedule switched to the synchronous one (the pipelined schedule is not
+    ported yet, ROADMAP queue 1 item 9): batch_object_tracking and the
+    320-pixel object window stay at their defaults."""
     from maskfusion_tpu_torch.config import Config
 
-    return Config(global_surfel_capacity=1 << 22,
-                  object_surfel_capacity=1 << 19, seg_method="maskfusion",
-                  model_spawn_offset=2, static_mode=False,
-                  pipelined_multiobject=False, batch_object_tracking=False)
+    return Config(seg_method="maskfusion", pipelined_multiobject=False,
+                  global_surfel_capacity=1 << 22,
+                  object_surfel_capacity=1 << 19, model_spawn_offset=2,
+                  min_object_slots=2)
 
 
 def bench_static(device="cuda",
@@ -307,12 +309,14 @@ def bench_two_objects(device="cuda", frames=None, intrinsics=None) -> dict:
                         two_object_config(), device=device)
     warm_up(engine, frames[:TWO_OBJECT_WARM])
     n_models = len(engine.models)
+    windowed = engine.windowed_fuses
     fps = timed_windows(engine, frames[TWO_OBJECT_WARM:], TWO_OBJECT_TIMED,
                         TWO_OBJECT_WINDOWS)
     # live models after the warm-up (bench.py's n_models) and at the end
     return fps_line("slam_fps_640x480_two_objects_sync", fps,
                     device_line(device), n_models=n_models,
-                    n_models_end=len(engine.models))
+                    n_models_end=len(engine.models),
+                    windowed_frames=engine.windowed_fuses - windowed)
 
 
 def main() -> int:

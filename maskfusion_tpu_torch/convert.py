@@ -8,9 +8,10 @@ predictions and the engine's host bookkeeping.
   count) and the state's (pose, last_delta, pred_vmap, pred_nmap, pred_rgb,
   so3_intensity) under those names — becomes the port's ``MapState``.
 - `engine_snapshot` / `restore_engine`: a whole engine (every active and
-  inactive model's state and record, the frame counter, the id and spawn
-  counters, the last segmentation, the recent-spawn claims and the
-  segmenter's carried state) as plain numpy and Python values.  The snapshot
+  inactive model's state and record, object window included, the frame
+  counter, the id and spawn counters, the last segmentation, the
+  recent-spawn claims and the segmenter's carried state) as plain numpy and
+  Python values.  The snapshot
   reads any engine with the JAX package's attribute names, arrays through
   ``np.asarray``, so the port can start from the JAX engine's state and both
   can then run in lockstep.
@@ -31,7 +32,8 @@ STATE_FIELDS = tuple(f for f in MapState._fields if f != "map")
 # the Model record's fields that cross over (pose_log stays behind)
 MODEL_FIELDS = ("model_id", "class_id", "age", "unseen_count", "is_static",
                 "initial_c2w_inv", "conf_threshold", "max_depth",
-                "prev_pose", "last_bucket", "count_est", "fused_once")
+                "prev_pose", "last_bucket", "count_est", "window",
+                "fused_once")
 ENGINE_FIELDS = ("tick", "next_id", "spawn_offset", "lost")
 SEGMENTER_FIELDS = ("semantic_ignore", "_ignore_any", "label_to_model")
 

@@ -9,9 +9,17 @@ Port of ``maskfusion_tpu/engine.py`` (ref Core/MaskFusion.{h,cpp}):
   diagnostics stay on it until `flush_diagnostics`.
 - ``Config(static_mode=False)``: the synchronous multi-object schedule
   (engine.py:1236-1377): preprocess with the last segmentation, track the
-  global model then each object model, project all models' ids, segment
+  global model then the object models, project all models' ids, segment
   (edge map on the device, label rules on the host), spawn / inactivate
-  models, then fuse, clean and predict each model in turn.
+  models, choose each object's processing window, then fuse, clean and
+  predict every model.
+- The object passes (engine.py:318-356, 636-1041, 1539-1613, 1806-1911):
+  with ``batch_object_tracking`` (the default) two or more objects track in
+  one solve over a leading slot axis (`track_objects`), their id
+  projections share one bucket, and every model fuses through `fuse_stage`
+  (the global model, then each object slot, in its (OW, OW) window where
+  every live object has one: `fuse_clean_predict_obj_win`).  With
+  ``batch_object_tracking=False`` each model tracks and fuses in turn.
 - ``process_frame(frame, gt_pose=...)`` in either mode: the same general
   step with the global pose set to the given ground-truth pose in place of
   its track (objects are still tracked); in static mode it skips the
@@ -22,9 +30,10 @@ The stopwatch times the host's dispatch of each stage (``Preprocess``,
 only ``Run``), and ``Config.diag_export_dir`` writes the per-frame metrics
 CSV and alignment-error images (utils/diag_export).
 
-The pipelined multi-object schedule, the batched and windowed object passes,
-the Co-Fusion segmenter, redetection and relocalisation come with later
-slices; asking for them raises NotImplementedError.
+The pipelined multi-object schedule (with its windowed object tracker and
+windowed id projection), the Co-Fusion segmenter, redetection and
+relocalisation come with later slices; asking for them raises
+NotImplementedError.
 
 The JAX package jits each stage, donates the map buffers and prewarms its
 compile cache.  PyTorch runs eagerly, so none of that has a counterpart
@@ -64,6 +73,18 @@ from maskfusion_tpu_torch.utils.tuning import get_tuning
 # the JAX package's dead padding-slot sentinel of its batched object passes;
 # id assignment skips both, so neither ever names a live model.
 DEAD_SLOT_ID = 254
+
+
+def _slot_class(n_live: int, floor: int) -> int:
+    """Object-axis size class: the next power of two >= max(n_live, floor);
+    0 only when both are 0 (engine.py:59-69 of the JAX package)."""
+    n = max(n_live, floor)
+    if n <= 0:
+        return 0
+    c = 1
+    while c < n:
+        c <<= 1
+    return c
 
 
 class MapState(NamedTuple):
@@ -112,6 +133,8 @@ class Model:
     pose_log: List = dataclasses.field(default_factory=list)
     last_bucket: int = 0      # shrink-hysteresis input for choose_bucket
     count_est: int = -1       # last fetched surfel count (-1: unknown)
+    window: Optional[tuple] = None  # (oy, ox) object-window origin, or None
+                                    # when the mask does not fit the window
     fused_once: bool = False  # first-fuse weight boost applied yet?
 
     @property
@@ -130,14 +153,14 @@ def _host_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _object_window(cfg: Config, H: int, W: int) -> int:
+def _window_size(cfg: Config, H: int, W: int) -> int:
     """The JAX package's static object-window size (0: windowing off),
     engine.py:663-667."""
     ow = int(cfg.object_window)
     return 0 if ow <= 0 or ow > min(H, W) or ow % 8 else ow
 
 
-def _check_supported(cfg: Config, H: int, W: int) -> None:
+def _check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for what the port does not run yet, naming
     the ROADMAP item that brings it."""
     if cfg.relocalisation or cfg.close_loops:
@@ -159,11 +182,6 @@ def _check_supported(cfg: Config, H: int, W: int) -> None:
             "multi-object schedules are not ported yet (ROADMAP queue 1 "
             "item 9); pass pipelined_multiobject=False for the synchronous "
             "schedule")
-    if cfg.batch_object_tracking and _object_window(cfg, H, W):
-        raise NotImplementedError(
-            "batch_object_tracking=True with an object window: the "
-            "windowed fused object stage is not ported yet (ROADMAP queue 1 "
-            "item 8); pass batch_object_tracking=False or object_window=0")
     if cfg.enable_redetection:
         raise NotImplementedError(
             "enable_redetection: model redetection needs the fern model "
@@ -180,7 +198,7 @@ class MaskFusion:
         self.intr = intr
         self.cfg = config or Config()
         H, W = resolution.height, resolution.width
-        _check_supported(self.cfg, H, W)
+        _check_supported(self.cfg)
         self.device = torch.device(device) if device is not None \
             else default_device()
         self._tuning = get_tuning(self.device)
@@ -220,6 +238,11 @@ class MaskFusion:
         self._pending_diag = None
         self._zero_mask = torch.zeros((H, W), dtype=torch.uint8,
                                       device=self.device)
+        self._obj_window = _window_size(self.cfg, H, W)
+        # (capacity, slot) -> dead padding-slot state (_dummy_obj_state)
+        self._dummy_state_cache: Dict = {}
+        # frames whose object models fused in their windows
+        self.windowed_fuses = 0
         # the bilateral's metric footprint stays constant across
         # resolutions: pixel radius and spatial sigma scale with width
         bl_scale = W / 640.0
@@ -264,15 +287,45 @@ class MaskFusion:
         (`is_object`) tracks with the object weights and damping; `warm`,
         the camera's world motion from the global track, starts its solve
         from "world-static" (Config.object_warm_start)."""
+        res = self._solve(state.pose, state.pred_vmap, state.pred_nmap,
+                          state.pred_rgb, state.so3_intensity, mask_id, prep,
+                          is_object, warm)
+        return TrackResult(
+            pose=se3.make_pose(res.R, res.t), delta=res.delta,
+            icp_error=res.icp_error, icp_count=res.icp_count,
+            rgb_error=res.rgb_error, rgb_count=res.rgb_count,
+            cov_diag=torch.diagonal(odo.covariance(res.A)))
+
+    def track_objects(self, states: List[MapState], mask_ids: List[int],
+                      prep: Preprocessed,
+                      warm: Optional[torch.Tensor] = None):
+        """Every object model in ONE solve over a leading slot axis
+        (engine.py:318-356 of the JAX package, a jax.vmap over objects; the
+        reference tracks them in turn, MaskFusion.cpp:246-278).  Each slot
+        has its own pose, model pyramids, SO(3) intensity and mask id; all
+        share the frame pyramids.  Returns the new poses (N, 4, 4) and each
+        slot's translation jump (N,), on the device."""
+        res = self._solve(
+            *(torch.stack([getattr(s, f) for s in states])
+              for f in ("pose", "pred_vmap", "pred_nmap", "pred_rgb",
+                        "so3_intensity")),
+            self._upload(np.asarray(mask_ids, np.int32)), prep, True, warm)
+        return (se3.make_pose(res.R, res.t),
+                torch.linalg.vector_norm(res.delta[:, :3, 3], dim=-1))
+
+    def _solve(self, pose, pred_vmap, pred_nmap, pred_rgb, so3_intensity,
+               mask_id, prep: Preprocessed, is_object: bool,
+               warm: Optional[torch.Tensor]) -> odo.OdometryResult:
+        """The tracking solve of one model, or of N models stacked on a
+        leading slot axis (an (N,) tensor of mask ids)."""
         cfg = self.cfg
-        pose0 = state.pose if warm is None else state.pose @ warm
         model_pyr = odo.build_model_pyramids(
-            state.pred_vmap, state.pred_nmap, state.pred_rgb, state.pose,
-            cfg.num_pyr_levels, cfg.max_depth_rgb)
-        so3_pyr = [None] * cfg.num_pyr_levels
-        so3_pyr[-1] = state.so3_intensity
-        res = odo.get_incremental_transformation(
-            pose0[:3, 3], pose0[:3, :3], prep.frame_pyr, model_pyr,
+            pred_vmap, pred_nmap, pred_rgb, pose, cfg.num_pyr_levels,
+            cfg.max_depth_rgb)
+        pose0 = pose if warm is None else pose @ warm
+        so3_pyr = [None] * (cfg.num_pyr_levels - 1) + [so3_intensity]
+        return odo.get_incremental_transformation(
+            pose0[..., :3, 3], pose0[..., :3, :3], prep.frame_pyr, model_pyr,
             tuple(so3_pyr), self.intr,
             rgb_only=cfg.rgb_only,
             icp_weight=(cfg.object_icp_weight if is_object
@@ -292,11 +345,14 @@ class MaskFusion:
             num_levels=cfg.num_pyr_levels,
             assoc_period=cfg.assoc_period,
             gn_step_eps=cfg.gn_step_eps)
-        return TrackResult(
-            pose=se3.make_pose(res.R, res.t), delta=res.delta,
-            icp_error=res.icp_error, icp_count=res.icp_count,
-            rgb_error=res.rgb_error, rgb_count=res.rgb_count,
-            cov_diag=torch.diagonal(odo.covariance(res.A)))
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A small host array on the device without waiting for the
+        device's queue: a pinned copy, sent non-blocking."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
 
     def init_map(self, prep: Preprocessed, rgb, seg_mask, mask_id: int,
                  pose: torch.Tensor, time: float, capacity: int,
@@ -322,16 +378,20 @@ class MaskFusion:
             pred_rgb=filled.rgb,
             so3_intensity=prep.frame_pyr.intensities[-1])
 
-    def fuse_clean_predict(self, state: MapState, prep: Preprocessed, rgb,
-                           seg_mask, prev_pose, time: float, mask_id: int,
-                           conf_threshold: float, max_depth: float,
-                           weight_multiplier: float, allow_fill_in: bool,
-                           bucket: int, parity: Optional[int] = None,
-                           compact: bool = True):
-        """engine.py:472-598 of the JAX package.  Updates state.map's
-        tensors in place (prefix write-back)."""
-        cfg, intr = self.cfg, self.intr
-        H, W = self.res.height, self.res.width
+    def _fuse_core(self, state: MapState, vmap_raw, vmap0, nmap0, filt, rgb,
+                   seg_mask, time: float, mask_id: int,
+                   conf_threshold: float, max_depth: float,
+                   weight_multiplier: float, bucket: int,
+                   parity: Optional[int], compact: bool,
+                   intr: CameraIntrinsics):
+        """Render, fuse, patch the index map, clean and predict one model
+        on an image of the inputs' size seen through `intr`: the full frame,
+        or an object's window with its shifted principal point.  Updates
+        state.map's tensors in place (prefix write-back) and returns the
+        map, the unfilled prediction, the removed and appended counts and
+        the inverse pose."""
+        cfg = self.cfg
+        H, W = filt.shape
         time_delta = cfg.effective_time_delta()
         pose = state.pose
         pose_inv = se3.pose_inverse(pose)
@@ -347,29 +407,26 @@ class MaskFusion:
         im1 = splat_ops.render_index_map(work, pose_inv, intr, H, W, time,
                                          time_delta, cfg.depth_cutoff)
         fres = fuse_ops.fuse(
-            work, im1, prep.vmap_raw, prep.levels[0]["vmap"],
-            prep.levels[0]["nmap"], rgb, seg_mask, mask_id, pose, intr, time,
-            weighting, max_depth,
+            work, im1, vmap_raw, vmap0, nmap0, rgb, seg_mask, mask_id, pose,
+            intr, time, weighting, max_depth,
             checkerboard=cfg.fuse_subsample_checkerboard, parity=parity,
             merge_z_thresh=cfg.surfel_merge_z_thresh)
         if cfg.incremental_im2:
+            # confidence and radius depend on the distance from the
+            # principal point: a window's shifted one
             conf_px = sm.pixel_confidence(H, W, intr, 1.0,
                                           self.device) * weighting
-            rad_px = sm.radius_from_depth(prep.levels[0]["vmap"][..., 2],
-                                          prep.levels[0]["nmap"][..., 2],
-                                          intr)
+            rad_px = sm.radius_from_depth(vmap0[..., 2], nmap0[..., 2], intr)
             im2 = splat_ops.patch_index_map(
-                im1, fres.map, fres.new_pixels, prep.vmap_raw,
-                prep.levels[0]["nmap"], conf_px, rgb, rad_px, pose_inv, time,
-                work.count)
+                im1, fres.map, fres.new_pixels, vmap_raw, nmap0, conf_px,
+                rgb, rad_px, pose_inv, time, work.count)
         else:
             im2 = splat_ops.render_index_map(fres.map, pose_inv, intr, H, W,
                                              time, time_delta,
                                              cfg.depth_cutoff)
         cres = clean_ops.clean(
-            fres.map, im2, prep.filt_depth, seg_mask, mask_id, pose_inv,
-            intr, time, time_delta, conf_threshold, max_depth,
-            cfg.outlier_coefficient,
+            fres.map, im2, filt, seg_mask, mask_id, pose_inv, intr, time,
+            time_delta, conf_threshold, max_depth, cfg.outlier_coefficient,
             unstable_time_limit=cfg.unstable_time_limit, compact=compact)
         appended = fres.map.count - work.count
         final_map = sm.write_back(full_map, cres.map)
@@ -384,19 +441,108 @@ class MaskFusion:
             time_delta, cfg.depth_cutoff)
         pred = splat_ops.combined_predict(im2_gated, intr, cfg.depth_cutoff,
                                           coarse=(im_coarse, 2))
+        return final_map, pred, cres.removed, appended, pose_inv
+
+    def fuse_clean_predict(self, state: MapState, prep: Preprocessed, rgb,
+                           seg_mask, prev_pose, time: float, mask_id: int,
+                           conf_threshold: float, max_depth: float,
+                           weight_multiplier: float, allow_fill_in: bool,
+                           bucket: int, parity: Optional[int] = None,
+                           compact: bool = True):
+        """engine.py:472-598 of the JAX package.  Updates state.map's
+        tensors in place (prefix write-back)."""
+        cfg = self.cfg
+        lv0 = prep.levels[0]
+        final_map, pred, removed, appended, pose_inv = self._fuse_core(
+            state, prep.vmap_raw, lv0["vmap"], lv0["nmap"], prep.filt_depth,
+            rgb, seg_mask, time, mask_id, conf_threshold, max_depth,
+            weight_multiplier, bucket, parity, compact, self.intr)
         if allow_fill_in:
-            filled = fill_ops.fill_in(pred, rgb, prep.levels[0]["vmap"],
-                                      prep.levels[0]["nmap"])
+            filled = fill_ops.fill_in(pred, rgb, lv0["vmap"], lv0["nmap"])
             pv, pn, pc = filled.vmap, filled.nmap, filled.rgb
             if cfg.frame_to_frame_rgb:
                 pc = rgb.to(torch.float32)
         else:
             pv, pn, pc = pred.vmap, pred.nmap, pred.rgb
         new_state = MapState(
-            map=final_map, pose=pose, last_delta=pose_inv @ prev_pose,
+            map=final_map, pose=state.pose, last_delta=pose_inv @ prev_pose,
             pred_vmap=pv, pred_nmap=pn, pred_rgb=pc,
             so3_intensity=prep.frame_pyr.intensities[-1])
-        return new_state, cres.removed, appended
+        return new_state, removed, appended
+
+    def _intr_shift(self, oy: int, ox: int) -> CameraIntrinsics:
+        """Intrinsics with the principal point moved into a window's
+        coordinates (engine.py:669-676 of the JAX package).  The origin is
+        a host int, so cx - ox is exact; nothing is cached by these
+        intrinsics (windows move every frame)."""
+        i = self.intr
+        return CameraIntrinsics(i.fx, i.fy, i.cx - ox, i.cy - oy)
+
+    def fuse_clean_predict_obj_win(self, state: MapState, prep: Preprocessed,
+                                   rgb, seg_mask, prev_pose, time: float,
+                                   mask_id: int, conf_threshold: float,
+                                   max_depth: float, weight_multiplier: float,
+                                   oy: int, ox: int, bucket: int,
+                                   parity: Optional[int]) -> MapState:
+        """An object's fuse + clean + predict on its (OW, OW) window at
+        (oy, ox) (engine.py:678-775 of the JAX package): every image-side
+        pass runs on the crop with the shifted principal point; the window
+        holds the object's mask and margin, so everything inside it sees
+        the full-frame pass's pixels.  The prediction is pasted into a NaN
+        canvas (zeros for rgb); objects never fill in."""
+        H, W = self.res.height, self.res.width
+        OW = self._obj_window
+        win = (slice(oy, oy + OW), slice(ox, ox + OW))
+        lv0 = prep.levels[0]
+        final_map, pred, _removed, _appended, pose_inv = self._fuse_core(
+            state, prep.vmap_raw[win], lv0["vmap"][win], lv0["nmap"][win],
+            prep.filt_depth[win], rgb[win], seg_mask[win], time, mask_id,
+            conf_threshold, max_depth, weight_multiplier, bucket, parity,
+            True, self._intr_shift(oy, ox))
+        pv = torch.full((H, W, 3), float("nan"), device=self.device)
+        pn = torch.full((H, W, 3), float("nan"), device=self.device)
+        pc = torch.zeros((H, W, 3), device=self.device)
+        pv[win] = pred.vmap
+        pn[win] = pred.nmap
+        pc[win] = pred.rgb
+        return MapState(
+            map=final_map, pose=state.pose, last_delta=pose_inv @ prev_pose,
+            pred_vmap=pv, pred_nmap=pn, pred_rgb=pc,
+            so3_intensity=prep.frame_pyr.intensities[-1])
+
+    def fuse_stage(self, glob_state: MapState, obj_states, prep: Preprocessed,
+                   rgb, seg_mask, prev_poses: torch.Tensor, time: float,
+                   obj_params: np.ndarray, glob_bucket: int, obj_bucket: int,
+                   parity: Optional[int], windowed: bool = False):
+        """Every model's fuse + clean + predict (pipelined_fuse_stage,
+        engine.py:957-1041 of the JAX package, as its synchronous schedule
+        calls it: no tracking gate, no ids guard).  The global model first
+        (fill-in, compaction), then each object slot, in its window when
+        `windowed`.  `prev_poses` stacks the pre-track poses (row 0 global,
+        then one a slot); `obj_params` holds one host row a slot,
+        [mask_id, conf_t, max_depth, weight_mult, oy, ox].  A dead slot
+        (mask id DEAD_SLOT_ID) would fuse no pixel, so it is skipped and
+        comes back as it went in.  Returns (global state, object states)."""
+        new_glob, _removed, _app = self.fuse_clean_predict(
+            glob_state, prep, rgb, seg_mask, prev_poses[0], time, 0,
+            self.cfg.conf_threshold_global, self.cfg.depth_cutoff,
+            self.cfg.weight_multiplier, True, glob_bucket, parity, True)
+        new_objs = []
+        for k, (state, row) in enumerate(zip(obj_states, obj_params)):
+            mid, conf_t, max_d, wm, oy, ox = row.tolist()
+            if int(mid) == DEAD_SLOT_ID:
+                new_objs.append(state)
+            elif windowed:
+                new_objs.append(self.fuse_clean_predict_obj_win(
+                    state, prep, rgb, seg_mask, prev_poses[k + 1], time,
+                    int(mid), conf_t, max_d, wm, int(oy), int(ox),
+                    obj_bucket, parity))
+            else:
+                new_objs.append(self.fuse_clean_predict(
+                    state, prep, rgb, seg_mask, prev_poses[k + 1], time,
+                    int(mid), conf_t, max_d, wm, False, obj_bucket, parity,
+                    True)[0])
+        return new_glob, tuple(new_objs)
 
     def fused_static_step(self, state: MapState, rgb, depth, time: float,
                           bucket: int, parity: Optional[int],
@@ -439,6 +585,15 @@ class MaskFusion:
             conf_threshold=12.0)
         pred = splat_ops.combined_predict(im, self.intr, max_depth)
         return torch.where(pred.depth > 0, pred.depth, float("inf"))
+
+    def project_ids_batched(self, maps: List[sm.SurfelMap],
+                            poses: List[torch.Tensor], time: float,
+                            max_depth: float, bucket: int):
+        """The object models' projections with one shared bucket
+        (project_ids_batched, engine.py:807-816 of the JAX package, a vmap
+        over the models; here one model after another)."""
+        return [self.project_ids(m, p, time, max_depth, bucket)
+                for m, p in zip(maps, poses)]
 
     @staticmethod
     def combine_ids(depths: List[torch.Tensor],
@@ -508,14 +663,99 @@ class MaskFusion:
         model.last_bucket = b
         return b
 
+    def _dummy_obj_state(self, capacity: int, slot: int) -> MapState:
+        """Dead padding-slot state (engine.py:1418-1441 of the JAX
+        package): an empty map, identity pose, all-invalid predictions.  It
+        fuses no pixel (mask DEAD_SLOT_ID), never enters `models` and adds
+        nothing to a live model's result.  Cached per slot.  The JAX package
+        re-caches each slot after every fuse because its fuse stage donates
+        its inputs (_refresh_dummies); the port donates nothing and skips
+        dead slots, so the cached state stays valid as it is."""
+        key = (capacity, slot)
+        st = self._dummy_state_cache.get(key)
+        if st is None:
+            g = self.models[0].state
+            eye = torch.eye(4, dtype=torch.float32, device=self.device)
+            st = MapState(
+                map=sm.empty(capacity, self.device), pose=eye,
+                last_delta=eye.clone(),
+                pred_vmap=torch.full_like(g.pred_vmap, float("nan")),
+                pred_nmap=torch.full_like(g.pred_nmap, float("nan")),
+                pred_rgb=torch.zeros_like(g.pred_rgb),
+                so3_intensity=torch.zeros_like(g.so3_intensity))
+            self._dummy_state_cache[key] = st
+        return st
+
+    def _padded_obj_states(self, objs: List[Model], n_slots: int):
+        """The object slots of the fuse stage: live models first, then dead
+        states up to the size class (engine.py:1443-1454 of the JAX
+        package)."""
+        states = tuple(m.state for m in objs)
+        cap = (objs[0].state.map.capacity if objs
+               else self.cfg.object_surfel_capacity)
+        return states + tuple(self._dummy_obj_state(cap, len(objs) + k)
+                              for k in range(n_slots - len(objs)))
+
+    # ------------------------------------------------------------ windows
+    def _window_from_bbox(self, y0: int, x0: int, y1: int, x1: int):
+        """The (oy, ox) origin of an (OW, OW) window around a bounding box
+        and its margin, snapped to a multiple of 8 and clipped into the
+        frame; None when box and margin do not fit (engine.py:1539-1547 of
+        the JAX package)."""
+        OW = self._obj_window
+        H, W = self.res.height, self.res.width
+        m = self.cfg.object_window_margin
+        if (y1 - y0 + 1) + 2 * m > OW or (x1 - x0 + 1) + 2 * m > OW:
+            return None
+        oy = int(np.clip((y0 + y1 + 1 - OW) // 2, 0, H - OW)) & ~7
+        ox = int(np.clip((x0 + x1 + 1 - OW) // 2, 0, W - OW)) & ~7
+        return (oy, ox)
+
+    def _object_window(self, model: Model, seg: np.ndarray):
+        """A model's window from its current mask (engine.py:1549-1564 of
+        the JAX package): an absent label keeps the previous window (the
+        object is briefly unseen; its surfels still project near it)."""
+        if not self._obj_window:
+            return None
+        sel = seg == model.model_id
+        ys = sel.any(axis=1)
+        if not ys.any():
+            return model.window
+        xs = sel.any(axis=0)
+        y0, y1 = np.flatnonzero(ys)[[0, -1]]
+        x0, x1 = np.flatnonzero(xs)[[0, -1]]
+        return self._window_from_bbox(y0, x0, y1, x1)
+
+    def _update_windows(self, seg: np.ndarray) -> None:
+        """Every object model's window from the frame's segmentation
+        (engine.py:1566-1585 of the JAX package, its numpy path; the native
+        bounding-box pass comes with mfcore)."""
+        if not self._obj_window:
+            return
+        for model in self.models[1:]:
+            model.window = self._object_window(model, seg)
+
     def _project_ids_all(self, time: float) -> torch.Tensor:
         """All models' (depth, id) projections combined into one uint8 id
-        image on the device (GlobalProjection.cpp:48-75).  Every model
-        renders with the global depth cutoff (GlobalProjection.cpp:60)."""
+        image on the device (GlobalProjection.cpp:48-75; engine.py:1597-1621
+        of the JAX package).  Every model renders with the global depth
+        cutoff (GlobalProjection.cpp:60); two or more objects of one
+        capacity share the largest of their buckets."""
         cutoff = self.cfg.depth_cutoff
-        depths = [self.project_ids(m.state.map, m.state.pose, time, cutoff,
-                                   bucket=self._bucket_for(m))
-                  for m in self.models]
+        glob = self.models[0]
+        depths = [self.project_ids(glob.state.map, glob.state.pose, time,
+                                   cutoff, bucket=self._bucket_for(glob))]
+        objs = self.models[1:]
+        if len(objs) >= 2 and len({m.state.map.capacity
+                                   for m in objs}) == 1:
+            bucket = max(self._bucket_for(m) for m in objs)
+            depths += self.project_ids_batched(
+                [m.state.map for m in objs], [m.state.pose for m in objs],
+                time, cutoff, bucket)
+        else:
+            depths += [self.project_ids(m.state.map, m.state.pose, time,
+                                        cutoff, bucket=self._bucket_for(m))
+                       for m in objs]
         ids_vec = torch.tensor([m.model_id for m in self.models],
                                dtype=torch.int32, device=self.device)
         return self.combine_ids(depths, ids_vec)
@@ -628,19 +868,56 @@ class MaskFusion:
             else:
                 model.unseen_count += 1
             model.conf_threshold = min(4.5, model.age / 25.0)
+        self._update_windows(seg_mask_np)
         return seg_mask_np
 
     def _dispatch_fuse(self, prep, rgb, seg_mask_np: np.ndarray, tick: int,
                        do_fuse: bool) -> None:
-        """fuse + clean + predict for every model in turn
-        (MaskFusion.cpp:539-569; the loop of engine.py:1869-1911 of the JAX
-        package).  Objects never fill in, and a model's first fuse weighs
-        100."""
+        """fuse + clean + predict for every model (MaskFusion.cpp:539-569;
+        engine.py:1806-1911 of the JAX package).  With
+        batch_object_tracking, all through `fuse_stage`: the object slots
+        padded to _slot_class(objects, min_object_slots), one shared object
+        bucket, windowed when every live object has a window.  Otherwise
+        (or, in principle, for objects of different capacities, which no
+        path creates: every object map is made with
+        cfg.object_surfel_capacity) each model in turn.  Objects never fill
+        in, and a model's first fuse weighs 100."""
         cfg = self.cfg
         if not do_fuse:
             return
         seg_mask = torch.from_numpy(seg_mask_np).to(self.device)
         parity = tick % 2 if cfg.fuse_subsample_checkerboard else None
+        glob, objs = self.models[0], self.models[1:]
+        if cfg.batch_object_tracking and len(
+                {m.state.map.capacity for m in objs}) <= 1:
+            obj_bucket = max((self._bucket_for(m) for m in objs),
+                             default=self._tuning.min_bucket_object)
+            windowed = (bool(self._obj_window)
+                        and bool(objs or cfg.min_object_slots)
+                        and all(m.window is not None for m in objs))
+            n_slots = _slot_class(len(objs), cfg.min_object_slots)
+            pad = n_slots - len(objs)
+            eye = torch.eye(4, dtype=torch.float32, device=self.device)
+            prev_poses = torch.stack([glob.prev_pose]
+                                     + [m.prev_pose for m in objs]
+                                     + [eye] * pad)
+            obj_params = np.asarray(
+                [[m.model_id, m.conf_threshold,
+                  min(cfg.depth_cutoff, m.max_depth),
+                  100.0 if not m.fused_once else cfg.weight_multiplier,
+                  *(m.window or (0, 0))] for m in objs]
+                + [[DEAD_SLOT_ID, 1.0, cfg.depth_cutoff, 1.0, 0, 0]] * pad,
+                np.float32).reshape(n_slots, 6)
+            glob.state, new_objs = self.fuse_stage(
+                glob.state, self._padded_obj_states(objs, n_slots), prep,
+                rgb, seg_mask, prev_poses, float(tick), obj_params,
+                glob_bucket=self._bucket_for(glob), obj_bucket=obj_bucket,
+                parity=parity, windowed=windowed)
+            for m, st in zip(objs, new_objs):
+                m.state = st
+                m.fused_once = True
+            self.windowed_fuses += int(windowed and bool(objs))
+            return
         for model in list(self.models):
             is_glob = model.model_id == 0
             wm = (100.0 if not model.fused_once and not is_glob
@@ -789,7 +1066,7 @@ class MaskFusion:
                     if cfg.object_warm_start else None)
 
             trackable = cfg.trackable_classes
-            jumps = []
+            tracked = []
             for model in list(self.models[1:]):
                 if trackable and model.class_id not in trackable:
                     # an untracked object mirrors the camera
@@ -797,12 +1074,25 @@ class MaskFusion:
                     model.state = model.state._replace(pose=torch.as_tensor(
                         model.initial_c2w_inv, device=self.device)
                         @ new_pose)
-                    continue
-                trm = self.track(model.state, prep, model.model_id,
-                                 is_object=True, warm=warm)
-                model.state = model.state._replace(pose=trm.pose)
-                jumps.append((model,
-                              torch.linalg.vector_norm(trm.delta[:3, 3])))
+                else:
+                    tracked.append(model)
+            jumps = []
+            if len(tracked) >= 2 and cfg.batch_object_tracking:
+                # one solve for all objects (engine.py:1284-1296 of the JAX
+                # package)
+                poses, norms = self.track_objects(
+                    [m.state for m in tracked],
+                    [m.model_id for m in tracked], prep, warm)
+                for i, model in enumerate(tracked):
+                    model.state = model.state._replace(pose=poses[i])
+                    jumps.append((model, norms[i]))
+            else:
+                for model in tracked:
+                    trm = self.track(model.state, prep, model.model_id,
+                                     is_object=True, warm=warm)
+                    model.state = model.state._replace(pose=trm.pose)
+                    jumps.append((model, torch.linalg.vector_norm(
+                        trm.delta[:3, 3])))
             if jumps:
                 # one host sync for all jump checks (MaskFusion.cpp:267-272)
                 norms = torch.stack([j for _, j in jumps]).tolist()

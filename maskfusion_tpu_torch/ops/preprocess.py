@@ -9,7 +9,10 @@ Port of ``maskfusion_tpu/ops/preprocess.py``:
   - intensity + derivative images (ref cudafuncs.cu:626-715)
 
 Conventions: images are (H, W[, C]) tensors; vertex/normal maps are (H, W, 3)
-float32 with NaN marking invalid entries.  Strided decimation is plain
+float32 with NaN marking invalid entries.  The model-side pyramid ops
+(pyr_down_gauss_depth, pyr_down_uchar_gauss, resize_vmap, resize_nmap,
+transform_maps, vertices_to_depth, rgb_to_intensity) also take a leading
+slot axis, one image per object model.  Strided decimation is plain
 slicing here: the JAX package's one-hot convs existed only because TPU
 strided slices are slow, and a slice is exact.
 """
@@ -33,13 +36,6 @@ def _grid(H: int, W: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
     u = torch.arange(W, dtype=torch.float32, device=device)[None, :]
     v = torch.arange(H, dtype=torch.float32, device=device)[:, None]
     return u.expand(H, W), v.expand(H, W)
-
-
-def _pad2(img: torch.Tensor, top: int, bottom: int, left: int, right: int,
-          fill) -> torch.Tensor:
-    """Constant-pad the two leading (H, W) dims of an image."""
-    pad = [0, 0] * (img.dim() - 2) + [left, right, top, bottom]
-    return F.pad(img, pad, value=fill)
 
 
 def _shift_edge(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -79,7 +75,7 @@ _BINOMIAL5 = (1.0, 4.0, 6.0, 4.0, 1.0)
 def _separable_masked_blur(vals: torch.Tensor, valid: torch.Tensor):
     """5-tap binomial blur of (valid*vals) and valid, separably, summed in
     the JAX package's tap order."""
-    H, W = vals.shape
+    H, W = vals.shape[-2:]
 
     def blur_axis(a, axis):
         if axis == 0:
@@ -89,9 +85,9 @@ def _separable_masked_blur(vals: torch.Tensor, valid: torch.Tensor):
         out = torch.zeros_like(a)
         for k, wk in enumerate(_BINOMIAL5):
             if axis == 0:
-                out = out + wk * p[k:k + H, :]
+                out = out + wk * p[..., k:k + H, :]
             else:
-                out = out + wk * p[:, k:k + W]
+                out = out + wk * p[..., k:k + W]
         return out
 
     v = torch.where(valid, vals, 0.0)
@@ -104,13 +100,13 @@ def pyr_down_gauss_depth(src: torch.Tensor) -> torch.Tensor:
     """Half-resolution 5x5 binomial downsample of float depth, skipping NaN
     and zero taps and renormalising (ref pyrDownKernelGaussF,
     cudafuncs.cu:333-364)."""
-    H, W = src.shape
+    H, W = src.shape[-2:]
     h, w = H // 2, W // 2
     srcf = src.to(torch.float32)
     valid = torch.isfinite(srcf) & (srcf > 0)
     sum_v, sum_w = _separable_masked_blur(srcf, valid)
-    sum_v = sum_v[:2 * h:2, :2 * w:2]
-    sum_w = sum_w[:2 * h:2, :2 * w:2]
+    sum_v = sum_v[..., :2 * h:2, :2 * w:2]
+    sum_w = sum_w[..., :2 * h:2, :2 * w:2]
     out = sum_v / torch.clamp(sum_w, min=1e-20)
     return torch.where(sum_w > 0, out, 0.0)
 
@@ -118,12 +114,12 @@ def pyr_down_gauss_depth(src: torch.Tensor) -> torch.Tensor:
 def pyr_down_uchar_gauss(src: torch.Tensor) -> torch.Tensor:
     """Half-resolution 5x5 binomial downsample of a uint8 image, counting only
     taps > 0 (ref pyrDownKernelIntensityGauss, cudafuncs.cu:534-564)."""
-    H, W = src.shape
+    H, W = src.shape[-2:]
     h, w = H // 2, W // 2
     srcf = src.to(torch.float32)
     sum_v, sum_w = _separable_masked_blur(srcf, srcf > 0)
-    sum_v = sum_v[:2 * h:2, :2 * w:2]
-    sum_w = sum_w[:2 * h:2, :2 * w:2]
+    sum_v = sum_v[..., :2 * h:2, :2 * w:2]
+    sum_w = sum_w[..., :2 * h:2, :2 * w:2]
     return (sum_v / torch.clamp(sum_w, min=1e-20)).to(src.dtype)
 
 
@@ -171,8 +167,10 @@ def transform_maps(vmap: torch.Tensor, nmap: torch.Tensor, R: torch.Tensor,
     NaN (tranformMapsKernel, cudafuncs.cu:207-248)."""
     v_valid = torch.isfinite(vmap[..., 0])
     n_valid = torch.isfinite(nmap[..., 0])
-    v_out = vmap @ R.T + t
-    n_out = nmap @ R.T
+    if R.dim() > 2:     # one pose per slot: (N, 3, 3) against (N, H, W, 3)
+        R, t = R[..., None, :, :], t[..., None, None, :]
+    v_out = vmap @ R.mT + t
+    n_out = nmap @ R.mT
     return (torch.where(v_valid[..., None], v_out, _NAN),
             torch.where(n_valid[..., None], n_out, _NAN))
 
@@ -181,20 +179,22 @@ _TENT = ((1.0, 2.0, 1.0), (2.0, 4.0, 2.0), (1.0, 2.0, 1.0))
 
 
 def _resize_half(m: torch.Tensor, normalize: bool) -> torch.Tensor:
-    """Centre-registered 2x downsample of a (H, W, 3) map: a 3x3 tent
+    """Centre-registered 2x downsample of a (..., H, W, 3) map: a 3x3 tent
     (stride 2, NaN pad 1), NaN where any tap is NaN.  This is the JAX
     package's deliberate fix of the reference's half-texel-shifted
     resizeMapKernel (maskfusion_tpu/ops/preprocess.py:229-259): it registers
     the model pyramid with the frame pyramid exactly.  The nine taps are
     summed explicitly — a conv algorithm that mixes a tile's inputs
     (Winograd, FFT) would spread NaN where it does not belong."""
-    H, W = m.shape[:2]
+    H, W = m.shape[-3:-1]
     h, w = (H - 1) // 2 + 1, (W - 1) // 2 + 1
-    p = _pad2(m, 1, 1, 1, 1, _NAN)
-    avg = torch.zeros((h, w, m.shape[2]), dtype=m.dtype, device=m.device)
+    p = F.pad(m, (0, 0, 1, 1, 1, 1), value=_NAN)
+    avg = torch.zeros(m.shape[:-3] + (h, w, m.shape[-1]), dtype=m.dtype,
+                      device=m.device)
     for i in range(3):
         for j in range(3):
-            avg = avg + (_TENT[i][j] / 16.0) * p[i:i + 2 * h:2, j:j + 2 * w:2]
+            avg = avg + (_TENT[i][j] / 16.0) * \
+                p[..., i:i + 2 * h:2, j:j + 2 * w:2, :]
     if normalize:
         avg = avg / torch.clamp(
             torch.linalg.vector_norm(avg, dim=-1, keepdim=True), min=1e-20)

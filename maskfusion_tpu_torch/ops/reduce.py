@@ -11,6 +11,12 @@ Ops:
   compute_rgb_residual — dense photometric correspondences (reduce.cu:774-997)
   rgb_step             — photometric GN term               (reduce.cu:529-713)
   so3_step             — rotation-only image alignment     (reduce.cu:999-1202)
+
+Each op also takes its model-side inputs with a leading slot axis (one
+object model a slot; poses (N, 3, 3) / (N, 3), model images (N, H, W, ...),
+mask ids shaped to broadcast against the frame's images) and returns one
+term per slot.  The frame-side inputs stay (H, W, ...): every slot reads
+the same frame images, broadcast, never copied.
 """
 
 from __future__ import annotations
@@ -21,20 +27,45 @@ import torch
 import torch.nn.functional as F
 
 from maskfusion_tpu_torch.camera import CameraIntrinsics
-from maskfusion_tpu_torch.ops.preprocess import _grid, shift
+from maskfusion_tpu_torch.ops.preprocess import _grid
 
 
 def _rowwise_jtj(rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Masked (P, k) rows -> (k, k) Gram matrix."""
-    rows = torch.where(valid[:, None], rows, 0.0)
-    return rows.T @ rows
+    """Masked ([N,] P, k) rows -> ([N,] k, k) Gram matrices.  With a slot
+    axis the slots' rows stand side by side in ONE (P, N k) product, whose
+    diagonal blocks are the slots' Gram matrices: on the card a batched
+    matmul of N (k, P) x (P, k) products gets no split over P, and took
+    5.25 ms against this product's 0.09 ms for two slots at P = 307,200
+    (tests/torch_slot_axis_probe.py)."""
+    rows = torch.where(valid[..., None], rows, 0.0)
+    if rows.dim() == 2:
+        return rows.T @ rows
+    n, p, k = rows.shape
+    side = rows.permute(1, 0, 2).reshape(p, n * k)
+    gram = (side.T @ side).reshape(n, k, n, k)
+    return gram.diagonal(dim1=0, dim2=2).permute(2, 0, 1)
 
 
 def _gather2d(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor):
-    """img[y, x] with clipped indices (the caller masks validity)."""
-    H, W = img.shape[:2]
-    flat = img.reshape((H * W,) + tuple(img.shape[2:]))
-    return flat[y.clamp(0, H - 1) * W + x.clamp(0, W - 1)]
+    """img[..., y, x, :] with clipped indices (the caller masks validity).
+    A (H, W, C) image takes indices of any shape; a (N, H, W, C) image one
+    index array a slot, (N, ...)."""
+    H, W, C = img.shape[-3:]
+    idx = y.clamp(0, H - 1) * W + x.clamp(0, W - 1)
+    lead = img.shape[:-3]
+    flat = img.reshape(lead + (H * W, C))
+    if not lead:
+        return flat[idx]
+    gi = idx.reshape(lead + (-1, 1)).expand(lead + (-1, C))
+    return torch.gather(flat, len(lead), gi).reshape(idx.shape + (C,))
+
+
+def _shift(img: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
+    """(..., H, W) image sampled at (y+dy, x+dx), `fill` outside."""
+    H, W = img.shape[-2:]
+    p = F.pad(img, (max(0, -dx), max(0, dx), max(0, -dy), max(0, dy)),
+              value=fill)
+    return p[..., max(0, dy):max(0, dy) + H, max(0, dx):max(0, dx) + W]
 
 
 def _finite_rows(rows: torch.Tensor) -> torch.Tensor:
@@ -51,12 +82,12 @@ def pack_model_maps(vmap_g_prev: torch.Tensor,
 def _erode4(valid: torch.Tensor, fill: bool) -> torch.Tensor:
     """True where the 4x4 neighbourhood rows [i-2, i+2), cols [j-2, j+2) is
     all True (reduce.cu:829-841); `fill` outside the image."""
-    H, W = valid.shape
+    H, W = valid.shape[-2:]
     pad = F.pad(valid.to(torch.uint8), (2, 2, 2, 2), value=int(fill)) > 0
     ok = torch.ones_like(valid)
     for dy in (-2, -1, 0, 1):
         for dx in (-2, -1, 0, 1):
-            ok = ok & pad[2 + dy:2 + dy + H, 2 + dx:2 + dx + W]
+            ok = ok & pad[..., 2 + dy:2 + dy + H, 2 + dx:2 + dx + W]
     return ok
 
 
@@ -64,7 +95,8 @@ def rgb_static_valid(next_image, next_depth, didx, didy, min_scale: float,
                      next_mask: Optional[torch.Tensor] = None,
                      mask_id=None) -> torch.Tensor:
     """Iteration-invariant part of the RGB correspondence gates: 4x4
-    erosion, gradient, interior and depth validity (reduce.cu:823-858)."""
+    erosion, gradient, interior and depth validity (reduce.cu:823-858).
+    A slot axis enters through `mask_id` shaped (N, 1, 1)."""
     H, W = next_image.shape
     nz = next_image > 0
     if next_mask is not None and mask_id is not None:
@@ -84,6 +116,7 @@ def rgb_last_valid(last_image: torch.Tensor) -> torch.Tensor:
 
 
 class GNTerm(NamedTuple):
+    """One system, or one a slot with a leading (N,) axis on each field."""
     A: torch.Tensor            # (6,6) or (3,3)
     b: torch.Tensor            # (6,) or (3,)
     residual_sq: torch.Tensor  # scalar: sum of squared residuals
@@ -93,8 +126,8 @@ class GNTerm(NamedTuple):
 class ICPAssociation(NamedTuple):
     """Frozen projective association: the gathered model rows and every
     gate evaluated at association time (the inlier set freezes with it)."""
-    vn: torch.Tensor           # (P, 6) gathered model vertex+normal (world)
-    found: torch.Tensor        # (P,) bool
+    vn: torch.Tensor           # ([N,] P, 6) gathered model vertex+normal
+    found: torch.Tensor        # ([N,] P) bool
 
 
 def icp_associate(R_curr, t_curr, vmap_curr, nmap_curr, R_prev_inv, t_prev,
@@ -102,15 +135,16 @@ def icp_associate(R_curr, t_curr, vmap_curr, nmap_curr, R_prev_inv, t_prev,
                   angle_thresh_sine: float, mask=None,
                   mask_id=None) -> ICPAssociation:
     """Projective correspondence search (ICPReduction::search,
-    reduce.cu:292-366) with the dist/sine gates at this pose."""
+    reduce.cu:292-366) with the dist/sine gates at this pose.  A slot
+    axis enters through the poses, `vn_packed` and `mask_id` ((N, 1))."""
     v = vmap_curr.reshape(-1, 3)
     n = nmap_curr.reshape(-1, 3)
     H, W = vmap_curr.shape[:2]
-    v_g = v @ R_curr.T + t_curr
-    v_cp = (v_g - t_prev) @ R_prev_inv.T
-    z = v_cp[:, 2]
-    u_proj = torch.round(v_cp[:, 0] * intr.fx / z + intr.cx)
-    v_proj = torch.round(v_cp[:, 1] * intr.fy / z + intr.cy)
+    v_g = v @ R_curr.mT + t_curr[..., None, :]
+    v_cp = (v_g - t_prev[..., None, :]) @ R_prev_inv.mT
+    z = v_cp[..., 2]
+    u_proj = torch.round(v_cp[..., 0] * intr.fx / z + intr.cx)
+    v_proj = torch.round(v_cp[..., 1] * intr.fy / z + intr.cy)
     # f32 -> int32 of a non-finite or huge value is implementation-defined;
     # clamp first (the JAX package's out-of-range casts saturate the same way)
     u_proj = torch.nan_to_num(u_proj, nan=-1.0).clamp(-1, W).to(torch.int32)
@@ -118,14 +152,14 @@ def icp_associate(R_curr, t_curr, vmap_curr, nmap_curr, R_prev_inv, t_prev,
     in_bounds = ((u_proj >= 0) & (v_proj >= 0) & (u_proj < W) & (v_proj < H)
                  & (z >= 0))
     vn = _gather2d(vn_packed, v_proj, u_proj)
-    vprev_g = vn[:, 0:3]
-    nprev_g = vn[:, 3:6]
-    n_g = n @ R_curr.T
+    vprev_g = vn[..., 0:3]
+    nprev_g = vn[..., 3:6]
+    n_g = n @ R_curr.mT
     dist = torch.linalg.vector_norm(vprev_g - v_g, dim=-1)
     sine = torch.linalg.vector_norm(
         torch.linalg.cross(n_g, nprev_g, dim=-1), dim=-1)
     found = (in_bounds & (sine < angle_thresh_sine) & (dist <= dist_thresh)
-             & torch.isfinite(n[:, 0]) & torch.isfinite(vn[:, 3])
+             & torch.isfinite(n[:, 0]) & torch.isfinite(vn[..., 3])
              & torch.isfinite(v[:, 0]))
     if mask is not None and mask_id is not None:
         found = found & (mask.reshape(-1) == mask_id)
@@ -137,17 +171,19 @@ def icp_term_from_assoc(R_curr, t_curr, vmap_curr, nmap_curr, R_prev_inv,
     """Point-to-plane GN term against an existing association
     (ICPReduction::getProducts, reduce.cu:367-415)."""
     v = vmap_curr.reshape(-1, 3)
-    v_g = v @ R_curr.T + t_curr
-    s_cp = (v_g - t_prev) @ R_prev_inv.T
-    d_cp = (assoc.vn[:, 0:3] - t_prev) @ R_prev_inv.T
-    n_cp = assoc.vn[:, 3:6] @ R_prev_inv.T
+    t_prev = t_prev[..., None, :]
+    v_g = v @ R_curr.mT + t_curr[..., None, :]
+    s_cp = (v_g - t_prev) @ R_prev_inv.mT
+    d_cp = (assoc.vn[..., 0:3] - t_prev) @ R_prev_inv.mT
+    n_cp = assoc.vn[..., 3:6] @ R_prev_inv.mT
     resid = (n_cp * (s_cp - d_cp)).sum(-1)
     rows = _finite_rows(torch.cat(
-        [n_cp, torch.linalg.cross(s_cp, n_cp, dim=-1), resid[:, None]],
+        [n_cp, torch.linalg.cross(s_cp, n_cp, dim=-1), resid[..., None]],
         dim=-1))
     jtj = _rowwise_jtj(rows, assoc.found)
-    return GNTerm(A=jtj[:6, :6], b=jtj[:6, 6], residual_sq=jtj[6, 6],
-                  count=assoc.found.to(torch.float32).sum())
+    return GNTerm(A=jtj[..., :6, :6], b=jtj[..., :6, 6],
+                  residual_sq=jtj[..., 6, 6],
+                  count=assoc.found.to(torch.float32).sum(-1))
 
 
 def icp_step(R_curr, t_curr, vmap_curr, nmap_curr, R_prev_inv, t_prev,
@@ -165,6 +201,7 @@ def icp_step(R_curr, t_curr, vmap_curr, nmap_curr, R_prev_inv, t_prev,
 
 
 class RGBCorrespondences(NamedTuple):
+    """Per pixel, or ([N,] H, W) with a slot axis."""
     valid: torch.Tensor      # (H, W) bool
     u0: torch.Tensor         # (H, W) int32 — matched pixel in last image
     v0: torch.Tensor         # (H, W) int32
@@ -187,18 +224,23 @@ def compute_rgb_residual(didx, didy, last_depth, next_depth, last_image,
     """Dense photometric correspondence search (RGBResidual,
     reduce.cu:811-891): warp every gradient-carrying next pixel by the
     current inverse increment with its depth and accept depth-consistent
-    matches whose last-image 4x4 neighbourhood is valid."""
+    matches whose last-image 4x4 neighbourhood is valid.  A slot axis
+    enters through `krk_inv` (N, 3, 3), `kt` (N, 3) and the last images
+    (N, H, W)."""
     H, W = next_image.shape
     if static_valid is None:
         static_valid = rgb_static_valid(next_image, next_depth, didx, didy,
                                         min_scale, next_mask, mask_id)
     x, y = _grid(H, W, next_image.device)
     d1 = next_depth
-    td1 = d1 * (krk_inv[2, 0] * x + krk_inv[2, 1] * y + krk_inv[2, 2]) + kt[2]
-    u0f = (d1 * (krk_inv[0, 0] * x + krk_inv[0, 1] * y + krk_inv[0, 2])
-           + kt[0]) / td1
-    v0f = (d1 * (krk_inv[1, 0] * x + krk_inv[1, 1] * y + krk_inv[1, 2])
-           + kt[1]) / td1
+    k = krk_inv[..., None, None]          # each entry (..., 1, 1)
+    kt = kt[..., None, None]
+    td1 = d1 * (k[..., 2, 0, :, :] * x + k[..., 2, 1, :, :] * y
+                + k[..., 2, 2, :, :]) + kt[..., 2, :, :]
+    u0f = (d1 * (k[..., 0, 0, :, :] * x + k[..., 0, 1, :, :] * y
+                 + k[..., 0, 2, :, :]) + kt[..., 0, :, :]) / td1
+    v0f = (d1 * (k[..., 1, 0, :, :] * x + k[..., 1, 1, :, :] * y
+                 + k[..., 1, 2, :, :]) + kt[..., 1, :, :]) / td1
     u0 = _round_to_int(u0f, -1, W)
     v0 = _round_to_int(v0f, -1, H)
     in_b = (u0 >= 0) & (v0 >= 0) & (u0 < W) & (v0 < H)
@@ -206,7 +248,7 @@ def compute_rgb_residual(didx, didy, last_depth, next_depth, last_image,
         last_valid = rgb_last_valid(last_image)
     di_packed = torch.stack([last_depth, last_image.to(torch.float32),
                              last_valid.to(torch.float32)], dim=-1)
-    di = _gather2d(di_packed, v0.reshape(-1), u0.reshape(-1)).reshape(H, W, 3)
+    di = _gather2d(di_packed, v0, u0)
     d0 = di[..., 0]
     li = di[..., 1]
     depth_ok = ((d0 > 0) & ((td1 - d0).abs() <= max_depth_delta)
@@ -215,24 +257,26 @@ def compute_rgb_residual(didx, didy, last_depth, next_depth, last_image,
     diff = torch.where(valid, next_image.to(torch.float32) - li, 0.0)
     return RGBCorrespondences(
         valid=valid, u0=u0, v0=v0, d0=torch.where(valid, d0, 0.0),
-        diff=diff, sigma_sum=(diff * diff).sum(),
-        count=valid.to(torch.float32).sum())
+        diff=diff, sigma_sum=(diff * diff).sum((-2, -1)),
+        count=valid.to(torch.float32).sum((-2, -1)))
 
 
 def rgb_step(corres: RGBCorrespondences, sigma: torch.Tensor,
              intr: CameraIntrinsics, didx, didy, sobel_scale: float) -> GNTerm:
     """Photometric GN term from correspondences (RGBReduction,
     reduce.cu:547-630); the matched cloud point is back-projected from the
-    gathered depth."""
+    gathered depth.  With a slot axis `sigma` is (N,)."""
     fx, fy = intr.fx, intr.fy
-    valid = corres.valid.reshape(-1)
-    diff = corres.diff.reshape(-1)
+    flat = corres.valid.shape[:-2] + (-1,)
+    valid = corres.valid.reshape(flat)
+    diff = corres.diff.reshape(flat)
+    sigma = sigma[..., None]
     w = sigma + diff.abs()
     w = torch.where(w > 1.1920929e-07, 1.0 / w, 1.0)
     w = torch.where(sigma == -1.0, 1.0, w)
-    u0 = corres.u0.reshape(-1).to(torch.float32)
-    v0 = corres.v0.reshape(-1).to(torch.float32)
-    z = corres.d0.reshape(-1)
+    u0 = corres.u0.reshape(flat).to(torch.float32)
+    v0 = corres.v0.reshape(flat).to(torch.float32)
+    z = corres.d0.reshape(flat)
     cp0 = (u0 - intr.cx) * z / fx
     cp1 = (v0 - intr.cy) * z / fy
     invz = torch.where(z != 0, 1.0 / z, 0.0)
@@ -247,48 +291,57 @@ def rgb_step(corres: RGBCorrespondences, sigma: torch.Tensor,
     r6 = -w * diff
     rows = _finite_rows(torch.stack([r0, r1, r2, r3, r4, r5, r6], dim=-1))
     jtj = _rowwise_jtj(rows, valid)
-    return GNTerm(A=jtj[:6, :6], b=jtj[:6, 6], residual_sq=jtj[6, 6],
-                  count=valid.to(torch.float32).sum())
+    return GNTerm(A=jtj[..., :6, :6], b=jtj[..., :6, 6],
+                  residual_sq=jtj[..., 6, 6],
+                  count=valid.to(torch.float32).sum(-1))
 
 
 def so3_step(last_image, next_image, image_basis, k_inv, krlr) -> GNTerm:
     """Rotation-only photometric alignment on the coarsest pyramid level
-    (SO3Reduction, reduce.cu:999-1137): a 3x3 GN term over the rotation."""
-    H, W = last_image.shape
+    (SO3Reduction, reduce.cu:999-1137): a 3x3 GN term over the rotation.
+    A slot axis enters through `last_image` (N, H, W), `image_basis` and
+    `krlr` (N, 3, 3)."""
+    H, W = next_image.shape
     lastf = last_image.to(torch.float32)
     nextf = next_image.to(torch.float32)
-    x, y = _grid(H, W, last_image.device)
+    x, y = _grid(H, W, next_image.device)
     p = torch.stack([x, y, torch.ones_like(x)], dim=-1)       # (H, W, 3)
-    warped = p @ image_basis.T
+    if image_basis.dim() > 2:
+        image_basis = image_basis[..., None, :, :]
+    warped = p @ image_basis.mT
     wx = _round_to_int(warped[..., 0] / warped[..., 2], -1, W)
     wy = _round_to_int(warped[..., 1] / warped[..., 2], -1, H)
     found = ((wx >= 1) & (wx < W - 1) & (wy >= 1) & (wy < H - 1)
              & (x >= 1) & (x < W - 1) & (y >= 1) & (y < H - 1))
 
     # getGradient: (back - fore) / 2 at integer pixels
-    glx = (shift(lastf, 0, -1, 0.0) - shift(lastf, 0, 1, 0.0)) * 0.5
-    gly = (shift(lastf, -1, 0, 0.0) - shift(lastf, 1, 0, 0.0)) * 0.5
-    packed = torch.stack([shift(nextf, 0, -1, 0.0), shift(nextf, 0, 1, 0.0),
-                          shift(nextf, -1, 0, 0.0), shift(nextf, 1, 0, 0.0),
-                          nextf], dim=-1)
-    taps = _gather2d(packed, wy.reshape(-1), wx.reshape(-1)).reshape(H, W, 5)
+    glx = (_shift(lastf, 0, -1, 0.0) - _shift(lastf, 0, 1, 0.0)) * 0.5
+    gly = (_shift(lastf, -1, 0, 0.0) - _shift(lastf, 1, 0, 0.0)) * 0.5
+    packed = torch.stack([_shift(nextf, 0, -1, 0.0),
+                          _shift(nextf, 0, 1, 0.0),
+                          _shift(nextf, -1, 0, 0.0),
+                          _shift(nextf, 1, 0, 0.0), nextf], dim=-1)
+    taps = _gather2d(packed, wy, wx)
     gx = ((taps[..., 0] - taps[..., 1]) * 0.5 + glx) * 0.5
     gy = ((taps[..., 2] - taps[..., 3]) * 0.5 + gly) * 0.5
 
     point = p @ k_inv.T
     pz = point[..., 2]
     z2 = pz * pz
-    a, b_, c = krlr[0, 0], krlr[0, 1], krlr[0, 2]
-    d, e, f = krlr[1, 0], krlr[1, 1], krlr[1, 2]
-    g, h, i_ = krlr[2, 0], krlr[2, 1], krlr[2, 2]
+    k = krlr[..., None, None]             # each entry (..., 1, 1)
+    a, b_, c = k[..., 0, 0, :, :], k[..., 0, 1, :, :], k[..., 0, 2, :, :]
+    d, e, f = k[..., 1, 0, :, :], k[..., 1, 1, :, :], k[..., 1, 2, :, :]
+    g, h, i_ = k[..., 2, 0, :, :], k[..., 2, 1, :, :], k[..., 2, 2, :, :]
     lp0 = (pz * (d * gy + a * gx) - gy * g * y - gx * g * x) / z2
     lp1 = (pz * (e * gy + b_ * gx) - gy * h * y - gx * h * x) / z2
     lp2 = (pz * (f * gy + c * gx) - gy * i_ * y - gx * i_ * x) / z2
-    jac = torch.linalg.cross(torch.stack([lp0, lp1, lp2], dim=-1), point,
-                             dim=-1)
+    lp = torch.stack([lp0, lp1, lp2], dim=-1)
+    jac = torch.linalg.cross(lp, point.expand(lp.shape), dim=-1)
     resid = -(taps[..., 4] - lastf)
+    flat = found.shape[:-2] + (-1,)
     rows = _finite_rows(torch.cat([jac, resid[..., None]], dim=-1)
-                        .reshape(-1, 4))
-    jtj = _rowwise_jtj(rows, found.reshape(-1))
-    return GNTerm(A=jtj[:3, :3], b=jtj[:3, 3], residual_sq=jtj[3, 3],
-                  count=found.to(torch.float32).sum())
+                        .reshape(flat + (4,)))
+    jtj = _rowwise_jtj(rows, found.reshape(flat))
+    return GNTerm(A=jtj[..., :3, :3], b=jtj[..., :3, 3],
+                  residual_sq=jtj[..., 3, 3],
+                  count=found.to(torch.float32).sum((-2, -1)))

@@ -4,6 +4,10 @@ Port of ``maskfusion_tpu/se3.py`` (the reference's OdometryProvider,
 Core/Utils/OdometryProvider.h:31-93, and Model::rodrigues2,
 Core/Model/Model.cpp:891-932).  Everything is float32 and branch-free
 (``torch.where``) so that no function here waits on the device.
+
+Every function except `so3_log` and `to_quaternion` also takes a leading
+slot axis (one pose, vector or system per object model) and works slot by
+slot, so the batched object tracker solves all its objects in one call.
 """
 
 from __future__ import annotations
@@ -14,28 +18,37 @@ _EPS = 1e-12
 
 
 def _skew(r: torch.Tensor) -> torch.Tensor:
-    z = torch.zeros_like(r[0])
+    r0, r1, r2 = r.unbind(-1)
+    z = torch.zeros_like(r0)
     return torch.stack([
-        torch.stack([z, -r[2], r[1]]),
-        torch.stack([r[2], z, -r[0]]),
-        torch.stack([-r[1], r[0], z]),
-    ])
+        torch.stack([z, -r2, r1], -1),
+        torch.stack([r2, z, -r0], -1),
+        torch.stack([-r1, r0, z], -1),
+    ], -2)
+
+
+def trace(A: torch.Tensor) -> torch.Tensor:
+    """The trace of a matrix, or of each with a leading slot axis."""
+    if A.dim() == 2:
+        return torch.trace(A)
+    return A.diagonal(dim1=-2, dim2=-1).sum(-1)
 
 
 def rodrigues(rvec: torch.Tensor) -> torch.Tensor:
-    """Axis-angle (3,) -> rotation matrix (3,3).
+    """Axis-angle (..., 3) -> rotation matrix (..., 3, 3).
 
     R = cos(t) I + (1-cos t) rr^T + sin(t) [r]_x, identity for tiny angles
     (OdometryProvider.h:32-67)."""
-    theta = torch.linalg.vector_norm(rvec)
+    theta = torch.linalg.vector_norm(rvec, dim=-1)
     small = theta < _EPS
     safe_theta = torch.where(small, torch.ones_like(theta), theta)
-    r = rvec / safe_theta
-    c = torch.cos(theta)
-    s = torch.sin(theta)
+    r = rvec / safe_theta[..., None]
+    c = torch.cos(theta)[..., None, None]
+    s = torch.sin(theta)[..., None, None]
     eye = torch.eye(3, dtype=rvec.dtype, device=rvec.device)
-    R = c * eye + (1.0 - c) * torch.outer(r, r) + s * _skew(r)
-    return torch.where(small, eye, R)
+    R = c * eye + (1.0 - c) * (r[..., :, None] * r[..., None, :]) \
+        + s * _skew(r)
+    return torch.where(small[..., None, None], eye, R)
 
 
 def so3_log(R: torch.Tensor) -> torch.Tensor:
@@ -59,20 +72,24 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
 
 
 def make_pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    bottom = torch.zeros((1, 4), dtype=R.dtype, device=R.device)
-    bottom[0, 3] = 1.0
-    return torch.cat([torch.cat([R, t[:, None]], dim=1), bottom], dim=0)
+    # the bottom row [0, 0, 0, 1] made on the device: writing a Python
+    # scalar into a card's tensor waits for the device's queue
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:]
+    bottom = bottom.expand(R.shape[:-2] + (1, 4))
+    return torch.cat([torch.cat([R, t[..., None]], dim=-1), bottom], dim=-2)
 
 
 def se3_exp_update(result_rt: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Left-multiply the incremental GN solution x = [t(3), rvec(3)] onto the
     running transform (OdometryProvider::computeUpdateSE3, :69-85)."""
-    return make_pose(rodrigues(x[3:6]), x[:3]) @ result_rt
+    return make_pose(rodrigues(x[..., 3:6]), x[..., :3]) @ result_rt
 
 
 def pose_inverse(T: torch.Tensor) -> torch.Tensor:
-    Rt = T[:3, :3].T
-    return make_pose(Rt, -(Rt @ T[:3, 3]))
+    Rt = T[..., :3, :3].mT
+    if T.dim() == 2:
+        return make_pose(Rt, -(Rt @ T[:3, 3]))
+    return make_pose(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
 
 
 def _cholesky(A: torch.Tensor) -> torch.Tensor:
@@ -89,8 +106,13 @@ def solve_6x6_ldlt(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     Relative Tikhonov damping (1e-4 * trace / n) pins the directions a
     near-flat model leaves unconstrained, exactly as the JAX package does;
-    a non-finite solution becomes zero."""
-    dim = A.shape[0]
+    a non-finite solution becomes zero.  With a leading slot axis each
+    slot is solved on its own: the card's batched Cholesky routines wait
+    for the device's queue, the one-matrix ones do not
+    (tests/torch_slot_axis_probe.py)."""
+    if A.dim() > 2:
+        return torch.stack([solve_6x6_ldlt(a, c) for a, c in zip(A, b)])
+    dim = A.shape[-1]
     lam = 1e-4 * torch.trace(A) / dim + 1e-12
     A = A + lam * torch.eye(dim, dtype=A.dtype, device=A.device)
     x = torch.cholesky_solve(b[:, None], _cholesky(A))[:, 0]

@@ -8,9 +8,18 @@ solve on the device.
 The JAX package ends converged levels early with ``lax.while_loop``.  Here
 every iteration of the schedule is issued and a converged (``done``)
 iteration keeps the old state through ``torch.where`` — the same numbers,
-with no host sync on the device's verdict.  The frozen-association schedule
-(``assoc_period``) and its gates are those of the JAX package: gates freeze
-with the association, at level 0 only.
+with no host sync on the device's verdict.
+
+The model side may carry a leading slot axis: N object models tracked
+against the same frame in one solve (the JAX engine's ``jax.vmap`` over
+objects, maskfusion_tpu/engine.py:318-356).  Each slot has its own pose,
+model pyramids, SO(3) intensity, mask id and ``done`` flags, so a slot that
+has converged keeps its state while the others iterate, as the vmapped
+``while_loop`` does; the frame pyramids are shared, broadcast across the
+slots.  A call without the slot axis is the one-slot case.
+
+The frozen-association schedule (``assoc_period``) and its gates are those
+of the JAX package: gates freeze with the association, at level 0 only.
 
 Pose convention: (R, t) is camera-to-world; the returned `delta` is the
 prev->curr increment in the previous camera frame (the reference's
@@ -92,9 +101,10 @@ def build_model_pyramids(pred_vmap, pred_nmap, pred_rgb, model_pose,
                          max_depth_rgb: float = 6.0) -> ModelPyramids:
     """The 'prev' side from a model's predicted view: pyramid, then every
     level into the world frame (initICPModel/initRGBModel,
-    RGBDOdometry.cpp:153-209)."""
-    R = model_pose[:3, :3]
-    t = model_pose[:3, 3]
+    RGBDOdometry.cpp:153-209).  With a slot axis: (N, H, W, 3) predictions
+    and (N, 4, 4) poses."""
+    R = model_pose[..., :3, :3]
+    t = model_pose[..., :3, 3]
     v, n = pred_vmap, pred_nmap
     d = pp.vertices_to_depth(pred_vmap, max_depth_rgb)
     g = pp.rgb_to_intensity(pred_rgb)
@@ -127,9 +137,16 @@ def _k_matrices(intr: CameraIntrinsics, level: int, device: torch.device):
             torch.as_tensor(K_inv, device=device))
 
 
+def _w(cond, a, b):
+    """torch.where with a per-slot `cond` ((), or (N,)) widened to the
+    trailing dims of a and b."""
+    extra = max(a.dim(), b.dim()) - cond.dim()
+    return torch.where(cond.reshape(cond.shape + (1,) * max(extra, 0)), a, b)
+
+
 def _sel(done, old, new):
-    """Per-field select of a tuple of tensors: old where done."""
-    return tuple(torch.where(done, o, n) for o, n in zip(old, new))
+    """Per-field select of a tuple of tensors: old where done (per slot)."""
+    return tuple(_w(done, o, n) for o, n in zip(old, new))
 
 
 def get_incremental_transformation(
@@ -164,20 +181,30 @@ def get_incremental_transformation(
     """One tracking solve (RGBDOdometry.cpp:227-497); the arguments and
     schedule are those of maskfusion_tpu.tracking.odometry, with its
     object-model options gn_damping and rgb_finest_only (its precomputed
-    last_valids serve only the windowed object pass, not ported yet)."""
+    last_valids serve only the windowed object tracker, not ported yet).
+
+    With a slot axis: `t_prev` (N, 3), `R_prev` (N, 3, 3), the model
+    pyramids and SO(3) intensities (N, ...) and `mask_id` an (N,) tensor;
+    every field of the result then has a leading (N,) axis."""
     use_icp = (not rgb_only) and icp_weight > 0
     use_rgb_any = rgb_only or icp_weight < 100
     dev = t_prev.device
     f32 = torch.float32
     t_prev = t_prev.to(f32)
     R_prev = R_prev.to(f32)
-    R_prev_inv = R_prev.T
+    R_prev_inv = R_prev.mT
+    slots = t_prev.shape[:-1]           # () or (N,)
+    # the mask id against the frame's (H, W) masks and its P pixels
+    mid_img = mid_pix = mask_id
+    if slots and mask_id is not None:
+        mid_img = mask_id.reshape(slots + (1, 1))
+        mid_pix = mask_id.reshape(slots + (1,))
 
     def scalar(v):
         # a fill on the device, not a host->device copy
-        return torch.full((), v, dtype=f32, device=dev)
+        return torch.full(slots, v, dtype=f32, device=dev)
 
-    false = torch.zeros((), dtype=torch.bool, device=dev)
+    false = torch.zeros(slots, dtype=torch.bool, device=dev)
 
     didx, didy = [], []
     for i in range(num_levels):
@@ -191,7 +218,7 @@ def get_incremental_transformation(
 
     so3_error = scalar(0.0)
     so3_count = scalar(0.0)
-    result_R = torch.eye(3, dtype=f32, device=dev)
+    result_R = torch.eye(3, dtype=f32, device=dev).expand(slots + (3, 3))
 
     # --- SO(3) pre-alignment on the coarsest level (.cpp:254-325) ---
     if use_so3 and so3_last_intensities is not None:
@@ -201,7 +228,7 @@ def get_incremental_transformation(
         next_img = frame.intensities[lvl]
         big = scalar(_F32_MAX / 2)
         resultR, lastErr, lastCnt = result_R, big, big
-        lastResultR = torch.eye(3, dtype=f32, device=dev)
+        lastResultR = result_R
         err, cnt, done = so3_error, so3_count, false
         for _ in range(so3_iterations):
             term = red.so3_step(last_img, next_img, K @ resultR @ K_inv,
@@ -217,11 +244,11 @@ def get_incremental_transformation(
                 @ resultR
             keep = diverged | converged
             step = (
-                torch.where(diverged, lastResultR,
-                            torch.where(converged, resultR, new_resultR)),
+                _w(diverged, lastResultR,
+                   _w(converged, resultR, new_resultR)),
                 torch.where(keep, lastErr, cur_err),
                 torch.where(keep, lastCnt, cur_cnt),
-                torch.where(keep, lastResultR, resultR),
+                _w(keep, lastResultR, resultR),
                 torch.where(diverged, lastErr, cur_err),
                 torch.where(diverged, lastCnt, cur_cnt),
                 keep,
@@ -240,11 +267,11 @@ def get_incremental_transformation(
     else:
         iters = [10] + [0] * (num_levels - 1)
 
-    result_rt = torch.eye(4, dtype=f32, device=dev)
-    result_rt[:3, :3] = result_R
+    result_rt = se3.make_pose(
+        result_R, torch.zeros(slots + (3,), dtype=f32, device=dev))
     t_curr, R_curr = t_prev, R_prev
-    lastA = torch.zeros((6, 6), dtype=f32, device=dev)
-    lastb = torch.zeros((6,), dtype=f32, device=dev)
+    lastA = torch.zeros(slots + (6, 6), dtype=f32, device=dev)
+    lastb = torch.zeros(slots + (6,), dtype=f32, device=dev)
     icp_error, icp_count = scalar(0.0), scalar(0.0)
     rgb_error, rgb_count = scalar(0.0), scalar(0.0)
     prevT = se3.make_pose(R_prev, t_prev)
@@ -264,7 +291,7 @@ def get_incremental_transformation(
             frame.intensities[lvl], frame.depths[lvl], didx[lvl], didy[lvl],
             min_scale,
             next_mask=frame.masks[lvl] if use_mask_rgb else None,
-            mask_id=mask_id if use_mask_rgb else None,
+            mask_id=mid_img if use_mask_rgb else None,
         ) if use_rgb else None
         last_valid = red.rgb_last_valid(
             model.intensities[lvl]) if use_rgb else None
@@ -273,10 +300,13 @@ def get_incremental_transformation(
                        min_scale=min_scale, static_valid=static_valid,
                        last_valid=last_valid):
             Rt = se3.pose_inverse(result_rt_c)
+            # one model keeps its matrix-vector product (and its rounding)
+            kt = (Kj @ Rt[:3, 3] if Rt.dim() == 2
+                  else (Kj @ Rt[..., :3, 3:4])[..., 0])
             return red.compute_rgb_residual(
                 didx[lvl], didy[lvl], model.depths[lvl], frame.depths[lvl],
                 model.intensities[lvl], frame.intensities[lvl],
-                Kj @ Rt[:3, :3] @ K_invj, Kj @ Rt[:3, 3], min_scale,
+                Kj @ Rt[..., :3, :3] @ K_invj, kt, min_scale,
                 max_depth_delta_rgb, static_valid=static_valid,
                 last_valid=last_valid)
 
@@ -303,7 +333,7 @@ def get_incremental_transformation(
                         R_prev_inv, t_prev, il, model.vmaps_g[lvl],
                         model.nmaps_g[lvl], dist_thresh, angle_thresh_sine,
                         mask=frame.masks[lvl] if use_mask_icp else None,
-                        mask_id=mask_id if use_mask_icp else None,
+                        mask_id=mid_pix if use_mask_icp else None,
                         vn_packed=vn_packed)
                 else:
                     icp_term = red.icp_term_from_assoc(
@@ -329,8 +359,9 @@ def get_incremental_transformation(
             if gn_damping > 0:
                 # Levenberg-style zero-step prior for small objects' few-pixel
                 # systems (Config.object_gn_damping)
-                lam = gn_damping * (torch.trace(A) / 6.0)
-                A = A + lam * torch.eye(6, dtype=A.dtype, device=dev)
+                lam = gn_damping * (se3.trace(A) / 6.0)
+                A = A + lam[..., None, None] * torch.eye(6, dtype=A.dtype,
+                                                         device=dev)
             x = se3.solve_6x6_ldlt(A, b)
             new_result_rt = se3.se3_exp_update(result_rt, x)
             currentT = prevT @ se3.pose_inverse(new_result_rt)
@@ -338,9 +369,9 @@ def get_incremental_transformation(
             if gn_step_eps > 0:
                 # this iteration's update still applies; later ones are
                 # masked (the JAX package's while_loop skips them)
-                out_done = done | (x.abs().max() < gn_step_eps)
+                out_done = done | (x.abs().amax(-1) < gn_step_eps)
             kept = _sel(done, carry[:10], (
-                new_result_rt, currentT[:3, 3], currentT[:3, :3],
+                new_result_rt, currentT[..., :3, 3], currentT[..., :3, :3],
                 new_rgb_error, A, b, new_icp_error, new_icp_count,
                 new_rgb_error, new_rgb_count))
             return kept + (out_done,)
@@ -351,7 +382,7 @@ def get_incremental_transformation(
                 c[2], c[1], frame.vmaps[lvl], frame.nmaps[lvl], R_prev_inv,
                 t_prev, il, vn_packed, dist_thresh, angle_thresh_sine,
                 mask=frame.masks[lvl] if use_mask_icp else None,
-                mask_id=mask_id if use_mask_icp else None)
+                mask_id=mid_pix if use_mask_icp else None)
             rgb_term = None
             if use_rgb:
                 corres = rgb_corres(c[0])
@@ -399,12 +430,12 @@ def get_incremental_transformation(
     # translation jump rejection (.cpp:478-482); the JAX package reads the
     # finest level's photometric switch here
     if use_rgb_any:
-        jumped = torch.linalg.vector_norm(t_curr - t_prev) > \
+        jumped = torch.linalg.vector_norm(t_curr - t_prev, dim=-1) > \
             translation_jump_limit
-        t_curr = torch.where(jumped, t_prev, t_curr)
-        R_curr = torch.where(jumped, R_prev, R_curr)
-        result_rt = torch.where(jumped, torch.eye(4, dtype=f32, device=dev),
-                                result_rt)
+        t_curr = _w(jumped, t_prev, t_curr)
+        R_curr = _w(jumped, R_prev, R_curr)
+        result_rt = _w(jumped, torch.eye(4, dtype=f32, device=dev),
+                       result_rt)
 
     return OdometryResult(
         t=t_curr, R=R_curr, delta=result_rt, A=lastA, b=lastb,

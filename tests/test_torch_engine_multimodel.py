@@ -123,7 +123,8 @@ def _two_object_frames(n, cam_step=0.0):
 
 def test_two_objects():
     """Two live objects; batch_object_tracking=True (no object window at
-    this size) runs the same per-model loop as False, so the two agree at
+    this size) tracks both in one solve over a slot axis and fuses them
+    through the fuse stage, False runs the per-model loop: the two agree at
     the bounds of tests/test_engine_multimodel.py:172-201."""
     results = {}
     frames = _two_object_frames(5)
@@ -263,19 +264,45 @@ def test_erase_error_geometry_matches_jax(spawned_pair):
 
 
 # --------------------------------------------- not ported: must raise
-@pytest.mark.parametrize("overrides,res", [
-    (dict(seg_method="maskfusion", pipelined_multiobject=True), (160, 120)),
-    (dict(seg_method="maskfusion", pipelined_multiobject=False,
-          batch_object_tracking=True), (640, 480)),
-    (dict(seg_method="cofusion"), (160, 120)),
-    (dict(enable_redetection=True), (160, 120)),
-    (dict(relocalisation=True), (160, 120)),
-], ids=["pipelined", "windowed_fused_stage", "cofusion", "redetection",
+@pytest.mark.parametrize("overrides,res,match", [
+    (dict(seg_method="maskfusion", pipelined_multiobject=True), (160, 120),
+     "ROADMAP"),
+    (dict(seg_method="maskfusion", pipelined_multiobject=True), (640, 480),
+     "ROADMAP queue 1 item 9"),
+    (dict(seg_method="cofusion"), (160, 120), "ROADMAP"),
+    (dict(enable_redetection=True), (160, 120), "ROADMAP"),
+    (dict(relocalisation=True), (160, 120), "ROADMAP"),
+], ids=["pipelined", "pipelined_vga", "cofusion", "redetection",
         "relocalisation"])
-def test_unported_configurations_raise(overrides, res):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_configurations_raise(overrides, res, match):
+    with pytest.raises(NotImplementedError, match=match):
         MaskFusion(Resolution(*res), tintr(syn.DEFAULT_INTR),
                    Config(**{**BASE, **overrides}), device=CPU)
+
+
+@pytest.mark.parametrize("argv", [
+    None,
+    ["-method", "maskfusion", "--pipeline", "off"],
+    ["-method", "precomputed"],
+], ids=["bench_sync", "cli_maskfusion_sync", "cli_precomputed"])
+def test_vga_default_object_passes_construct(argv):
+    """At 640x480 the default batch_object_tracking=True with the default
+    320-pixel object window constructs: bench.py's two-object configuration
+    in the synchronous schedule, and the CLI's multi-object methods that run
+    it.  No frame runs (no map is allocated before the first frame)."""
+    from maskfusion_tpu_torch import main as cli
+
+    if argv is None:
+        cfg = Config(seg_method="maskfusion", pipelined_multiobject=False,
+                     global_surfel_capacity=1 << 22,
+                     object_surfel_capacity=1 << 19, model_spawn_offset=2,
+                     min_object_slots=2)
+    else:
+        cfg = cli.make_config(cli.build_parser().parse_args(argv))
+    assert cfg.batch_object_tracking and cfg.object_window == 320
+    eng = MaskFusion(Resolution(640, 480), tintr(syn.DEFAULT_INTR), cfg,
+                     device=CPU)
+    assert eng._obj_window == 320 and eng.models == []
 
 
 # ------------------------------------------------------------- lockstep

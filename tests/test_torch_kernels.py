@@ -528,3 +528,75 @@ def test_cli_static_on_the_card(cuda_device, tmp_path, monkeypatch):
     assert card.shape == cpu.shape == (len(fd), 8)
     np.testing.assert_array_equal(card[:, 0], [f.timestamp for f in fd])
     assert np.abs(card[:, 1:4] - cpu[:, 1:4]).max() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_batched_windowed_path_on_the_card(cuda_device, monkeypatch):
+    """Six frames of the 160x120 two-object scene (chip_smoke's JAX-free
+    copy of tests/synthetic.py's) through the multi-object engine on the
+    card, in the configuration of tests/test_torch_object_passes.py (a
+    104-pixel object window, margin 24, min_object_slots=2).  From the
+    frame after the second spawn on: the objects track in ONE solve (a slot
+    axis of 2), fuse in their windows, and the scan kernel launches once
+    for each of the frame's projections (3 models) and predictions (3).
+    The batched solve itself never waits on the device."""
+    from maskfusion_tpu_torch.camera import CameraIntrinsics, Resolution
+    from maskfusion_tpu_torch.config import Config
+    from maskfusion_tpu_torch.engine import MaskFusion
+    from maskfusion_tpu_torch.frame import FrameData
+    from maskfusion_tpu_torch.tracking import odometry as todo
+
+    solves = []
+    solve = todo.get_incremental_transformation
+
+    def counted(t_prev, *a, **k):
+        solves.append(tuple(t_prev.shape[:-1]))
+        return solve(t_prev, *a, **k)
+
+    monkeypatch.setattr(todo, "get_incremental_transformation", counted)
+    fx, fy, cx, cy, w, h = chip_smoke.SMALL
+    eng = MaskFusion(Resolution(w, h), CameraIntrinsics(fx, fy, cx, cy),
+                     Config(global_surfel_capacity=1 << 16,
+                            object_surfel_capacity=1 << 13,
+                            seg_method="maskfusion",
+                            pipelined_multiobject=False,
+                            model_spawn_offset=0, object_window=104,
+                            object_window_margin=24, min_object_slots=2),
+                     device=cuda_device)
+    for i, (rgb, depth, lab) in enumerate(
+            chip_smoke.synthetic_two_objects(6)):
+        solves.clear()
+        kernels.reset_launch_counts()
+        before = eng.windowed_fuses
+        eng.process_frame(FrameData(rgb=rgb, depth=depth, mask=lab,
+                                    class_ids=[0, 7, 8],
+                                    timestamp=float(i)))
+        torch.cuda.synchronize()
+        if i >= 3:
+            assert [m.model_id for m in eng.models] == [0, 1, 2]
+            assert solves == [(), (2,)], (i, solves)
+            assert all(m.window is not None for m in eng.models[1:])
+            assert eng.windowed_fuses == before + 1
+            assert kernels.predict_l0_scan.launches == 6, i
+    assert all(np.isfinite(m.pose_log[-1]["pose"].cpu().numpy()).all()
+               for m in eng.models)
+    # the batched solve runs without waiting on the device
+    from torch.profiler import ProfilerActivity, profile
+
+    rgb, depth, _ = chip_smoke.synthetic_two_objects(7)[6]
+    prep = eng.preprocess(torch.from_numpy(rgb).to(cuda_device),
+                          torch.from_numpy(depth).to(cuda_device),
+                          eng._prev_seg())
+    objs = eng.models[1:]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            eng.track_objects([m.state for m in objs],
+                              [m.model_id for m in objs], prep)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    waits = [e.name for e in prof.events() if e.name in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize",
+        "cudaEventSynchronize")]
+    assert waits == []

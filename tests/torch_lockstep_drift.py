@@ -2,6 +2,7 @@
 over a longer lockstep run than tests/test_torch_engine_multimodel.py makes.
 
     python -m tests.torch_lockstep_drift [frames] [camera step in m] [gt]
+    python -m tests.torch_lockstep_drift [frames] [step] windowed
 
 The JAX engine runs the slice's configuration through both spawns (frames
 0-2) with its numpy segmentation path; its state crosses to the port
@@ -12,8 +13,11 @@ Each frame prints the model ids of both, the global and object pose
 differences and the surfel counts; after the first port frame it also
 prints how many of the global map's slots differ by more than 1e-5 m in
 position.  With ``gt`` both engines take each frame's camera pose as its
-ground-truth pose (``process_frame(..., gt_pose=...)``).  On the CPU, a
-few minutes.
+ground-truth pose (``process_frame(..., gt_pose=...)``).  With ``windowed``
+both run tests/test_torch_object_passes.py's configuration instead (objects
+tracked in one solve and fused in 104-pixel windows), and each frame also
+prints the global rotation difference (deg, float64).  On the CPU, a few
+minutes.
 """
 
 from __future__ import annotations
@@ -36,11 +40,15 @@ from maskfusion_tpu_torch.engine import MaskFusion
 from maskfusion_tpu_torch.frame import FrameData
 from tests import synthetic as syn
 from tests.test_torch_engine_multimodel import SLICE, _two_object_frames
+from tests.test_torch_object_passes import SLICE as WINDOWED
+from tests.test_torch_object_passes import _rot_deg
 from tests.torch_helpers import CPU, tintr
 
 
 def main(n_frames: int = 12, cam_step: float = 0.0,
-         ground_truth: bool = False) -> None:
+         mode: str = "") -> None:
+    ground_truth = mode == "gt"
+    slice_cfg = WINDOWED if mode == "windowed" else SLICE
     frames = _two_object_frames(n_frames, cam_step=cam_step)
 
     def gt(i):
@@ -48,7 +56,7 @@ def main(n_frames: int = 12, cam_step: float = 0.0,
 
     jnative._lib, jnative._tried = None, True      # the JAX numpy path
     jeng = JMaskFusion(JResolution(syn.W, syn.H), syn.DEFAULT_INTR,
-                       JConfig(**SLICE))
+                       JConfig(**slice_cfg))
 
     def frame_data(cls, i):
         rgb, depth, lab, _ = frames[i]
@@ -58,7 +66,7 @@ def main(n_frames: int = 12, cam_step: float = 0.0,
     for i in range(3):
         jeng.process_frame(frame_data(JFrameData, i), gt_pose=gt(i))
     teng = MaskFusion(Resolution(syn.W, syn.H), tintr(syn.DEFAULT_INTR),
-                      Config(**SLICE), device=CPU)
+                      Config(**slice_cfg), device=CPU)
     restore_engine(teng, engine_snapshot(jeng))
     for i in range(3, n_frames):
         dj = jeng.process_frame(frame_data(JFrameData, i), gt_pose=gt(i))
@@ -72,8 +80,9 @@ def main(n_frames: int = 12, cam_step: float = 0.0,
               f"global {glob_mm:.4f} mm, objects {obj_mm} mm; surfels "
               f"{[m.surfel_count for m in teng.models]} / "
               f"{[m.surfel_count for m in jeng.models]}; global x "
-              f"{pt[0][0, 3] * 1e3:.3f} / {pj[0][0, 3] * 1e3:.3f} mm",
-              flush=True)
+              f"{pt[0][0, 3] * 1e3:.3f} / {pj[0][0, 3] * 1e3:.3f} mm; "
+              f"global rotation {_rot_deg(pt[0], pj[0]):.5f} deg; windows "
+              f"{[m.window for m in teng.models[1:]]}", flush=True)
         if i == 3:
             a = state_to_numpy(teng.models[0].state)
             b = state_to_numpy(jeng.models[0].state)
@@ -85,5 +94,4 @@ def main(n_frames: int = 12, cam_step: float = 0.0,
 
 
 if __name__ == "__main__":
-    main(*(f(a) for f, a in zip((int, float, lambda a: a == "gt"),
-                                 sys.argv[1:])))
+    main(*(f(a) for f, a in zip((int, float, str), sys.argv[1:])))

@@ -38,7 +38,9 @@ def config_fields(width: int) -> dict:
                 model_spawn_offset=cfg.model_spawn_offset,
                 static_mode=cfg.static_mode,
                 pipelined_multiobject=cfg.pipelined_multiobject,
-                batch_object_tracking=cfg.batch_object_tracking)
+                batch_object_tracking=cfg.batch_object_tracking,
+                object_window=cfg.object_window,
+                min_object_slots=cfg.min_object_slots)
 
 
 def make_engine(name: str, width: int, height: int, intr):
