@@ -41,26 +41,38 @@ stopped; any failure raises and exits non-zero):
      loop (batch_object_tracking=False, the next 2 frames on the same
      engine): launches per frame of both forms side by side; then
      per-stage device and host times (4 frames);
+  6b. the main path: the pipelined, prefused engine (the Config default) at
+     640x480 in bench.py's two-object configuration verbatim, on phase 6's
+     frames: 14 warm-up frames draining every 4th as bench.py does, then 12
+     timed; FPS, the three kernels' launches over that run (every kernel
+     record's `launches`), the models after the warm-up and at the end,
+     the frames tracked, projected and fused in windows, and a
+     torch.profiler view of 4 more frames (launches and synchronises a
+     frame, device busy share) whose synchronises must all be forced
+     drains;
   7. 7 frames of a 160x120 two-object scene through the multi-object engine
      on the CPU, and on the card from the CPU's state after both spawns, in
-     two forms: the per-model loop, and the batched windowed passes (a
-     104-pixel window, margin 24, as tests/test_engine_pipelined.py): per
-     frame the same model and class ids and the global pose within
-     1 mm / 0.05 deg; up to frame 4, object poses within 8 mm and surfel
-     counts within 1% (the bounds of the port's lockstep test against the
-     JAX engine); the later frames, each run's object error against the
-     scene's motion and a card run from frame 0 are reported;
+     three forms: the per-model loop, the batched windowed passes (a
+     104-pixel window, margin 24, as tests/test_engine_pipelined.py), and
+     the prefused schedule with the same window (each frame finished
+     before the next, as the CPU finishes it): per frame the same model and
+     class ids and the global pose within 1 mm / 0.05 deg; up to frame 4,
+     object poses within 8 mm and surfel counts within 1% (the bounds of
+     the port's lockstep test against the JAX engine); the later frames,
+     each run's object error against the scene's motion and a card run
+     from frame 0 are reported;
   8. the -static CLI (maskfusion_tpu_torch.main) on a raw KLG log of phase
      3's frames, as a user runs it and without OpenCV: one bilateral and
      one scan launch a frame, TUM poses within 1 mm / 0.05 deg of phase 3's
      direct run, a PLY cloud within 1% of its confident surfels; then again
      with those poses as ground truth (-p): logged poses equal to their
      inputs within 1e-5, the scan running on every frame;
-  9. the port bench's two lines (maskfusion_tpu_torch.bench): the
-     two-object synchronous frame (phase 6's configuration, with its
-     windowed frames) and the static headline, each the median of its timed
-     windows.
-The last lines are the two bench lines, the card's nvidia-smi line, one
+  9. the port bench's three lines (maskfusion_tpu_torch.bench) on the
+     frames rendered above: the two-object line in bench.py's pipelined
+     configuration (phase 6b's) and in the synchronous one (phase 6's),
+     each with its models and windowed frames, and the static headline,
+     each the median of its timed windows.
+The last lines are the three bench lines, the card's nvidia-smi line, one
 JSON line of kernel records, and {"ok": true, "device": {...}}.
 
 The script imports nothing of JAX or of the JAX package, and refuses to run
@@ -737,25 +749,37 @@ def stage_times(engine, frames):
 def profile_frames(engine, frames, wall_ms_per_frame: float):
     """torch.profiler over a few frames: device busy time per frame (the
     sum of the card's kernel and copy intervals), its share of the
-    unprofiled frame time, and the host's runtime calls per frame."""
+    unprofiled frame time, and the host's runtime calls per frame, counted
+    inside the frames' span (the closing synchronise and any call the
+    profiler makes itself stay out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     n = len(frames)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for f in frames:
-            engine.process_frame(f)
+        with torch.profiler.record_function("chip_smoke.frames"):
+            for f in frames:
+                engine.process_frame(f)
         torch.cuda.synchronize()
+    events = prof.events()
+    # runtime calls are counted inside the frames' own span: the closing
+    # synchronise above and the profiler's own calls stay out
+    span = next(e.time_range for e in events
+                if e.name == "chip_smoke.frames"
+                and e.device_type == torch.autograd.DeviceType.CPU)
     busy_us = 0.0
     calls: dict = {}
     kernels: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name != "chip_smoke.frames"):
+            # the span's own device-side range is no device work
             us = e.time_range.elapsed_us()
             busy_us += us
             kernels[e.name] = kernels.get(e.name, 0.0) + us
-        elif e.name.startswith("cuda"):
+        elif (e.name.startswith("cuda") and span.start <= e.time_range.start
+              and e.time_range.end <= span.end):
             calls[e.name] = calls.get(e.name, 0) + 1
     busy_ms = busy_us / 1e3 / n
     waits = sum(calls.get(k, 0) for k in (
@@ -833,18 +857,18 @@ def phase_parity(dev, MaskFusion, Config, Resolution, CameraIntrinsics,
 
 
 def multiobject_config(Config, **kw):
-    """The synchronous multi-object schedule with MaskFusion segmentation
-    of the frame's masks."""
-    return Config(static_mode=False, seg_method="maskfusion",
-                  pipelined_multiobject=False, **kw)
+    """The multi-object engine with MaskFusion segmentation of the frame's
+    masks, in the synchronous schedule unless `kw` asks otherwise."""
+    return Config(**{"static_mode": False, "seg_method": "maskfusion",
+                     "pipelined_multiobject": False, **kw})
 
 
 def vga_multiobject_config():
     """bench.py's two-object configuration (bench.py:201-211), switched to
-    the synchronous schedule: the port bench's."""
+    the synchronous schedule: the port bench's _sync line."""
     from maskfusion_tpu_torch import bench
 
-    return bench.two_object_config()
+    return bench.two_object_config(pipelined=False)
 
 
 def phase_edge_kernel(dev, kernels, MaskFusion, Config, Resolution,
@@ -1033,6 +1057,104 @@ def phase_multiobject(dev, kernels, MaskFusion, Config, Resolution,
             "kernel_launches_per_frame": per_frame}, scans
 
 
+def phase_pipelined(dev, kernels, MaskFusion, Resolution, CameraIntrinsics,
+                    frames, intr, n_warm, n_timed, n_prof):
+    """The main path: bench.py's two-object configuration unchanged (the
+    pipelined, prefused schedule) at 640x480, run as bench.py runs it."""
+    import torch
+
+    from maskfusion_tpu_torch import bench
+
+    engine = MaskFusion(Resolution(640, 480), CameraIntrinsics(*intr),
+                        bench.two_object_config(), device=dev)
+    n_main = n_warm + n_timed
+    n_models = []
+    # the main path: every launch count starts at 0 here
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    for i, f in enumerate(frames[:n_warm]):
+        engine.process_frame(f)
+        n_models.append(len(engine.models))
+        if i % 4 == 3:
+            engine.drain_pipeline()
+    engine.drain_pipeline()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t_start
+    models_warm = len(engine.models)
+    windowed_warm = engine.windowed_fuses
+    waits_warm = engine.forced_waits
+    t0 = time.perf_counter()
+    staged = engine.upload_frame(frames[n_warm])
+    for nxt in frames[n_warm + 1:n_main]:
+        nxt_staged = engine.upload_frame(nxt)
+        engine.process_frame(staged)
+        n_models.append(len(engine.models))
+        staged = nxt_staged
+    engine.process_frame(staged)
+    n_models.append(len(engine.models))
+    engine.flush_diagnostics()
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {k: getattr(kernels, k).launches for k in
+                ("bilateral_depth", "predict_l0_scan", "geometric_edge_map")}
+    fps = n_timed / total
+    windowed = {"warm_up": windowed_warm,
+                "timed": engine.windowed_fuses - windowed_warm}
+    log(f"  warm-up {n_warm} frames in {warm_s:.2f} s; timed {n_timed} "
+        f"frames in {total:.3f} s = {fps:.2f} FPS; host stages that waited "
+        f"on the device: {waits_warm} in the warm-up, "
+        f"{engine.forced_waits - waits_warm} in the timed run (its last "
+        "frames drained at the end)")
+    log(f"  models after each frame: {n_models}; after the warm-up "
+        f"{models_warm}, at the end {len(engine.models)}")
+    log(f"  launches over the {n_main} main-path frames: {launches}")
+    log(f"  frames tracked and fused in windows: {windowed['warm_up']} of "
+        f"{n_warm} warm-up, {windowed['timed']} of {n_timed} timed; windows "
+        f"now {[m.window for m in engine.models[1:]]}")
+    if max(n_models) < 3:
+        raise AssertionError(f"the run never held 3 models: {n_models}")
+    # frame 1 initialises the global map: no device stage
+    want = {"bilateral_depth": n_main, "geometric_edge_map": n_main - 1,
+            "predict_l0_scan": n_main}
+    for name, count in launches.items():
+        if count < want[name]:
+            raise AssertionError(
+                f"{name} launched {count} times in {n_main} frames (at "
+                f"least {want[name]} expected)")
+    for m in engine.models:
+        pose = m.pose_log[-1]["pose"].cpu().numpy()
+        if not np.isfinite(pose).all():
+            raise AssertionError(f"model {m.model_id}: non-finite pose")
+    counts = [m.surfel_count for m in engine.models]
+    if not all(c > 0 for c in counts):
+        raise AssertionError(f"an empty model map: {counts}")
+    log(f"  model ids {[m.model_id for m in engine.models]}, classes "
+        f"{[m.class_id for m in engine.models]}, surfels {counts}")
+    # steady state under the profiler: every synchronise must be a forced
+    # drain (pipeline_depth frames in flight and the oldest not landed)
+    waits0 = engine.forced_waits
+    prof = profile_frames(engine, frames[n_main:n_main + n_prof],
+                          1000.0 / fps)
+    forced = engine.forced_waits - waits0
+    prof["forced_drains_per_frame"] = forced / n_prof
+    log(f"  profiled frames: {forced} forced drains in {n_prof} frames; "
+        f"pending frames {len(engine._pending)}")
+    if prof["synchronises_per_frame"] * n_prof > forced:
+        raise AssertionError(
+            f"{prof['synchronises_per_frame'] * n_prof:.0f} synchronises in "
+            f"{n_prof} steady-state frames, {forced} of them forced drains")
+    engine.drain_pipeline()
+    return {"fps": fps, "timed_s": total, "frames_timed": n_timed,
+            "windowed_frames": windowed, "launches": launches,
+            "launches_per_frame": {k: v / n_main
+                                   for k, v in launches.items()},
+            "n_models": n_models, "n_models_warm": models_warm,
+            "n_models_end": len(engine.models), "surfels": counts,
+            "forced_waits": {"warm_up": waits_warm,
+                             "timed": engine.forced_waits - waits_warm},
+            "profile": prof}
+
+
 def _object_offset(class_id: int, i: int) -> np.ndarray:
     """synthetic_two_objects' motion of the object of `class_id` (7: patch
     1, 8: patch 2) at frame i."""
@@ -1041,15 +1163,20 @@ def _object_offset(class_id: int, i: int) -> np.ndarray:
     return np.array([0.0, -0.006 * max(0, i - 2), 0.0])
 
 
+_NO_POSE = np.full((4, 4), np.nan)
+
+
 def _run_records(step, frames):
-    """Per frame: model ids, class ids, logged poses and surfel counts."""
+    """Per frame: model ids, class ids, logged poses and surfel counts.  A
+    model spawned by the pipelined schedule's host stage of the frame just
+    finished has no logged pose yet: NaN."""
     out = []
     for i in frames:
         eng = step(i)
         out.append(([m.model_id for m in eng.models],
                     [m.class_id for m in eng.models],
                     [m.pose_log[-1]["pose"].cpu().numpy().astype(np.float64)
-                     for m in eng.models],
+                     if m.pose_log else _NO_POSE for m in eng.models],
                     [m.surfel_count for m in eng.models]))
     return out
 
@@ -1059,6 +1186,8 @@ def _motion_error(rec, i: int, spawn: dict) -> float:
     scene's motion since the object's spawn frame."""
     err = 0.0
     for mid, cid, p in zip(rec[0][1:], rec[1][1:], rec[2][1:]):
+        if np.isnan(p).any():
+            continue
         true = _object_offset(cid, i) - _object_offset(cid, spawn[mid])
         err = max(err, float(np.linalg.norm(p[:3, 3] - true)))
     return err
@@ -1079,8 +1208,12 @@ def _compare_runs(card, cpu, first_frame: int, spawn: dict):
             "frame": i,
             "global_m": float(np.linalg.norm(pa[0][:3, 3] - pb[0][:3, 3])),
             "global_deg": _rot_deg(pa[0], pb[0]),
-            "object_m": max((float(np.linalg.norm(x[:3, 3] - y[:3, 3]))
-                             for x, y in zip(pa[1:], pb[1:])), default=0.0),
+            # a pose logged on one side only reads as infinitely apart
+            "object_m": max((float(np.nan_to_num(
+                np.linalg.norm(x[:3, 3] - y[:3, 3]), nan=np.inf))
+                for x, y in zip(pa[1:], pb[1:])
+                if not (np.isnan(x).any() and np.isnan(y).any())),
+                default=0.0),
             "count_rel": max(abs(x - y) / max(y, 1)
                              for x, y in zip(a[3], b[3])),
             "truth_card_m": _motion_error(a, i, spawn),
@@ -1095,13 +1228,16 @@ def _compare_runs(card, cpu, first_frame: int, spawn: dict):
 OBJECT_HOLD_LAST_FRAME = 4
 
 
-# phase 7's two forms of the synchronous frame
+# phase 7's forms: two of the synchronous frame, and the prefused schedule
 PARITY_FORMS = {
     "per_model_loop": dict(batch_object_tracking=False),
     # tests/test_engine_pipelined.py:19-33's window and margin
     "batched_windowed": dict(object_window=104, object_window_margin=24,
                              min_object_slots=2),
+    "pipelined": dict(pipelined_multiobject=True, object_window=104,
+                      object_window_margin=24, min_object_slots=2),
 }
+WINDOWED_FORMS = ("batched_windowed", "pipelined")
 
 
 def phase_multiobject_parity(dev, MaskFusion, Config, Resolution,
@@ -1115,8 +1251,11 @@ def phase_multiobject_parity(dev, MaskFusion, Config, Resolution,
     1 mm / 0.05 deg.  Held up to OBJECT_HOLD_LAST_FRAME: object poses within
     8 mm, surfel counts within 1%.  Reported: the later frames, each run's
     object error against the scene's motion, and a card run from frame 0.
-    The batched form must fuse its objects in their windows on every frame
-    after the carry."""
+    The windowed forms must fuse their objects in their windows on every
+    frame after the carry.  The pipelined form finishes every frame before
+    the next (drain_pipeline): the CPU's records are always ready, so its
+    engine finishes each at the start of the next frame, and the card's
+    must do the same to run the same lifecycle."""
     import torch
 
     from maskfusion_tpu_torch.convert import engine_snapshot, restore_engine
@@ -1141,6 +1280,7 @@ def phase_multiobject_parity(dev, MaskFusion, Config, Resolution,
             eng.process_frame(FrameData(rgb=rgb, depth=depth, mask=lab,
                                         class_ids=[0, 7, 8],
                                         timestamp=float(i)))
+            eng.drain_pipeline()
             return eng
         return step
 
@@ -1152,7 +1292,7 @@ def phase_multiobject_parity(dev, MaskFusion, Config, Resolution,
     restore_engine(card_eng, snap)
     carried = _run_records(stepper(card_eng), range(carry_at, len(frames)))
     windowed = card_eng.windowed_fuses
-    if form == "batched_windowed" and windowed != len(frames) - carry_at:
+    if form in WINDOWED_FORMS and windowed != len(frames) - carry_at:
         raise AssertionError(f"{form}: {windowed} windowed frames of "
                              f"{len(frames) - carry_at}")
     spawn = {}
@@ -1289,11 +1429,12 @@ def phase_cli(kernels, frames, direct, workdir: Path):
 
 
 def phase_bench(dev, frames, mo_frames, intr):
-    """The port bench's two lines (maskfusion_tpu_torch.bench), on the
+    """The port bench's three lines (maskfusion_tpu_torch.bench), on the
     frames rendered above."""
     from maskfusion_tpu_torch import bench
 
     lines = [bench.bench_two_objects(dev, mo_frames, intr),
+             bench.bench_two_objects(dev, mo_frames, intr, pipelined=False),
              bench.bench_static(dev, frames)]
     for line in lines:
         extra = {k: line[k] for k in ("n_models", "n_models_end",
@@ -1387,11 +1528,19 @@ def main() -> int:
         dev, kernels, MaskFusion, Config, Resolution, CameraIntrinsics,
         FrameData, mo_frames, intr, mo_warm, mo_timed, mo_stage, mo_prof)
     records.extend(object_scans)
+
+    log_phase("phase 6b: the main path, the prefused multi-object engine "
+              "(the Config default) at 640x480 in bench.py's two-object "
+              "configuration")
+    pipe_run = phase_pipelined(dev, kernels, MaskFusion, Resolution,
+                               CameraIntrinsics, mo_frames, intr, mo_warm,
+                               mo_timed, 2 * mo_prof)
     for rec in records:
         rec["launches_by_path"] = {
             "static": run["launches"].get(rec["name"], 0),
-            "multiobject": mo_run["launches"][rec["name"]]}
-        rec["launches"] = mo_run["launches"][rec["name"]]
+            "multiobject": mo_run["launches"][rec["name"]],
+            "pipelined": pipe_run["launches"][rec["name"]]}
+        rec["launches"] = pipe_run["launches"][rec["name"]]
         log(f"  {rec['name']} ({rec.get('map', 'image')}): "
             f"{rec['launches']} launches in the run "
             f"({rec['launches'] / (mo_warm + mo_timed):.2f} a frame), "
@@ -1422,6 +1571,7 @@ def main() -> int:
     log(f"engine: {json.dumps({k: v for k, v in run.items()})}")
     log(f"parity: {json.dumps(parity)}")
     log(f"multiobject: {json.dumps(mo_run)}")
+    log(f"pipelined: {json.dumps(pipe_run)}")
     log(f"multiobject parity: {json.dumps(mo_parity)}")
     log(f"cli: {json.dumps(cli_run)}")
     log(f"total {time.perf_counter() - t_all:.1f} s")

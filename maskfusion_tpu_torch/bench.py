@@ -3,18 +3,23 @@
     python -m maskfusion_tpu_torch.bench
 
 The counterpart of the repository's root ``bench.py`` (which drives the JAX
-package and stays as it is).  Two lines, each one JSON object in bench.py's
+package and stays as it is).  Three lines, each one JSON object in bench.py's
 format (``metric``, ``value``, ``unit``, ``vs_baseline`` against the 30 FPS
 real-time target, ``reps``), plus ``device``, the card's nvidia-smi name and
 power limit:
 
-- ``slam_fps_640x480_two_objects_sync``: bench.py's two-object
-  configuration in the synchronous schedule (the port has no pipelined one
-  yet), with its batched object tracking, 320-pixel object windows and two
-  object slots; 14 warm-up frames, then the median of 3 windows of 12
-  frames; with the live models after the warm-up (``n_models``, as
-  bench.py) and at the end (``n_models_end``), and how many timed frames
+- ``slam_fps_640x480_two_objects``: bench.py's two-object line as it runs
+  it (bench.py:193-260): its configuration unchanged -- the pipelined,
+  prefused schedule at the ``Config`` defaults (``fuse_mask_lag``,
+  ``pipeline_depth`` 4), batched object tracking, 320-pixel object windows,
+  two object slots -- and its drain schedule: 14 warm-up frames draining
+  the pipeline after every 4th and at the end, then the median of 3
+  windows of 12 frames, each window ending with a drain; with the live
+  models after the warm-up (``n_models``, as bench.py) and at the end
+  (``n_models_end``), and how many timed frames tracked, projected and
   fused their objects in their windows (``windowed_frames``);
+- ``slam_fps_640x480_two_objects_sync``: the same in the synchronous
+  schedule (``pipelined_multiobject=False``), with the same extras;
 - ``slam_fps_640x480_static``, printed last: bench.py's headline, the
   -static frame with a 2^22-surfel map; 8 warm-up frames, then the median of
   5 windows of 20 frames (five rather than bench.py's three: one run's
@@ -22,7 +27,8 @@ power limit:
 
 In each timed window the next frame's upload is staged while the current
 one runs (``upload_frame``), and the clock stops once the window's last
-frame has come back (``flush_diagnostics`` and a device synchronise).
+frame has come back (``flush_diagnostics``, which also finishes pending
+pipelined frames, and a device synchronise).
 
 The frame generators are bench.py's ``make_frames`` and
 ``make_two_object_frames``, with the parts of
@@ -220,10 +226,15 @@ def _wait(engine) -> None:
         torch.cuda.synchronize(engine.device)
 
 
-def warm_up(engine, frames: List[FrameData]) -> None:
-    """Run the untimed first frames (frames[0] initialises the map)."""
-    for f in frames:
+def warm_up(engine, frames: List[FrameData], drain_every: int = 0) -> None:
+    """Run the untimed first frames (frames[0] initialises the map),
+    finishing the pending pipelined frames after every `drain_every`-th
+    (bench.py drains every 4th so spawns and windows settle before the
+    clock starts)."""
+    for i, f in enumerate(frames):
         engine.process_frame(f)
+        if drain_every and i % drain_every == drain_every - 1:
+            engine.drain_pipeline()
     _wait(engine)
 
 
@@ -266,16 +277,17 @@ def static_config():
     return Config(static_mode=True, global_surfel_capacity=1 << 22)
 
 
-def two_object_config():
-    """bench.py's two-object configuration (bench.py:201-211) with only the
-    schedule switched to the synchronous one (the pipelined schedule is not
-    ported yet, ROADMAP queue 1 item 9): batch_object_tracking and the
-    320-pixel object window stay at their defaults."""
+def two_object_config(pipelined: bool = True):
+    """bench.py's two-object configuration (bench.py:201-211), unchanged:
+    the pipelined schedule with fuse_mask_lag and pipeline_depth at their
+    defaults; batch_object_tracking and the 320-pixel object window stay at
+    theirs.  `pipelined=False` switches only the schedule, to the
+    synchronous one."""
     from maskfusion_tpu_torch.config import Config
 
-    return Config(seg_method="maskfusion", pipelined_multiobject=False,
-                  global_surfel_capacity=1 << 22,
-                  object_surfel_capacity=1 << 19, model_spawn_offset=2,
+    return Config(global_surfel_capacity=1 << 22,
+                  object_surfel_capacity=1 << 19, seg_method="maskfusion",
+                  model_spawn_offset=2, pipelined_multiobject=pipelined,
                   min_object_slots=2)
 
 
@@ -295,10 +307,12 @@ def bench_static(device="cuda",
     return fps_line("slam_fps_640x480_static", fps, device_line(device))
 
 
-def bench_two_objects(device="cuda", frames=None, intrinsics=None) -> dict:
-    """The two-object line at 640x480 (bench.py's bench_two_objects, in the
-    synchronous schedule).  `frames` and `intrinsics`, when given, are
-    make_two_object_frames(640, 480, TWO_OBJECT_FRAMES)'s."""
+def bench_two_objects(device="cuda", frames=None, intrinsics=None,
+                      pipelined: bool = True) -> dict:
+    """The two-object line at 640x480 (bench.py's bench_two_objects), or
+    with `pipelined=False` its synchronous form.  `frames` and
+    `intrinsics`, when given, are make_two_object_frames(640, 480,
+    TWO_OBJECT_FRAMES)'s."""
     from maskfusion_tpu_torch.camera import CameraIntrinsics, Resolution
     from maskfusion_tpu_torch.engine import MaskFusion
 
@@ -306,15 +320,15 @@ def bench_two_objects(device="cuda", frames=None, intrinsics=None) -> dict:
         frames, intrinsics = make_two_object_frames(
             *VGA, TWO_OBJECT_FRAMES)
     engine = MaskFusion(Resolution(*VGA), CameraIntrinsics(*intrinsics),
-                        two_object_config(), device=device)
-    warm_up(engine, frames[:TWO_OBJECT_WARM])
+                        two_object_config(pipelined), device=device)
+    warm_up(engine, frames[:TWO_OBJECT_WARM], drain_every=4)
     n_models = len(engine.models)
     windowed = engine.windowed_fuses
     fps = timed_windows(engine, frames[TWO_OBJECT_WARM:], TWO_OBJECT_TIMED,
                         TWO_OBJECT_WINDOWS)
     # live models after the warm-up (bench.py's n_models) and at the end
-    return fps_line("slam_fps_640x480_two_objects_sync", fps,
-                    device_line(device), n_models=n_models,
+    metric = "slam_fps_640x480_two_objects" + ("" if pipelined else "_sync")
+    return fps_line(metric, fps, device_line(device), n_models=n_models,
                     n_models_end=len(engine.models),
                     windowed_frames=engine.windowed_fuses - windowed)
 
@@ -326,6 +340,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     print(json.dumps(bench_two_objects()), flush=True)
+    print(json.dumps(bench_two_objects(pipelined=False)), flush=True)
     print(json.dumps(bench_static()), flush=True)
     return 0
 

@@ -10,11 +10,14 @@ predictions and the engine's host bookkeeping.
 - `engine_snapshot` / `restore_engine`: a whole engine (every active and
   inactive model's state and record, object window included, the frame
   counter, the id and spawn counters, the last segmentation, the
-  recent-spawn claims and the segmenter's carried state) as plain numpy and
-  Python values.  The snapshot
-  reads any engine with the JAX package's attribute names, arrays through
+  recent-spawn claims, the segmenter's carried state, and what the
+  pipelined schedules read: each model's surfel-count estimate and the last
+  tracking verdict) as plain numpy and Python values.  The snapshot reads
+  any engine with the JAX package's attribute names, arrays through
   ``np.asarray``, so the port can start from the JAX engine's state and both
-  can then run in lockstep.
+  can then run in lockstep, in the synchronous or a pipelined schedule.  An
+  engine with pipelined frames still pending is refused: its state is not
+  that of any one frame until ``drain_pipeline()`` has finished them.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ MODEL_FIELDS = ("model_id", "class_id", "age", "unseen_count", "is_static",
                 "initial_c2w_inv", "conf_threshold", "max_depth",
                 "prev_pose", "last_bucket", "count_est", "window",
                 "fused_once")
-ENGINE_FIELDS = ("tick", "next_id", "spawn_offset", "lost")
+ENGINE_FIELDS = ("tick", "next_id", "spawn_offset", "lost",
+                 "_last_tracking_ok", "_pipelined_active")
 SEGMENTER_FIELDS = ("semantic_ignore", "_ignore_any", "label_to_model")
 
 
@@ -75,8 +79,13 @@ def _model_snapshot(m) -> Dict[str, Any]:
 
 
 def engine_snapshot(engine) -> Dict[str, Any]:
-    """Everything a synchronous engine carries from frame to frame, as
-    numpy arrays and Python values."""
+    """Everything an engine carries from frame to frame, as numpy arrays
+    and Python values.  Raises ValueError while pipelined frames are
+    pending."""
+    if getattr(engine, "_pending", None):
+        raise ValueError(
+            f"{len(engine._pending)} pipelined frames are still pending: "
+            "call drain_pipeline() first")
     snap = {k: getattr(engine, k) for k in ENGINE_FIELDS}
     seg = engine.last_segmentation
     snap["last_segmentation"] = None if seg is None else np.array(seg)
@@ -112,6 +121,9 @@ def restore_engine(engine: MaskFusion, snap: Dict[str, Any]) -> None:
                               for r in snap["inactive_models"]]
     engine._recent_spawns = [(e, r, np.array(mask))
                              for e, r, mask in snap["recent_spawns"]]
+    engine._pending.clear()
+    engine._seg_dev = None
+    engine._np_glob_pose = None
     for k, v in snap["segmenter"].items():
         if hasattr(engine.segmenter, k):
             setattr(engine.segmenter, k,

@@ -1,5 +1,5 @@
-"""The MaskFusion engine: the -static frame and the synchronous
-multi-object frame.
+"""The MaskFusion engine: the -static frame and the multi-object frame,
+synchronous or pipelined.
 
 Port of ``maskfusion_tpu/engine.py`` (ref Core/MaskFusion.{h,cpp}):
 
@@ -20,6 +20,25 @@ Port of ``maskfusion_tpu/engine.py`` (ref Core/MaskFusion.{h,cpp}):
   (the global model, then each object slot, in its (OW, OW) window where
   every live object has one: `fuse_clean_predict_obj_win`).  With
   ``batch_object_tracking=False`` each model tracks and fuses in turn.
+- ``Config(pipelined_multiobject=True)`` (the default) with the
+  MaskFusion segmenter: the pipelined schedules (engine.py:876-1041,
+  1913-2312).  A frame's device work -- preprocess, every model's track
+  (objects in one solve, in their windows where each has one:
+  `track_objects_win`), the id projection (`project_ids_obj_win` for
+  windowed objects) and the edge map -- is queued as one stage
+  (`pipelined_device_stage`); its host-bound numbers come back as one
+  packed `hostvec`, copied asynchronously into pinned memory with the id
+  image and the non-edge binary, and the host stage (`_finish_one`:
+  segmentation, lifecycle) runs once those copies have landed.  With
+  ``fuse_mask_lag=True`` ("prefused") frame t's fuse is queued right behind
+  its device stage, gated on the device by the frame's tracking covariance
+  and fed the newest segmentation under the ids-guard; host stages drain
+  as they become ready, forced only beyond ``pipeline_depth`` frames in
+  flight.  With ``fuse_mask_lag=False`` ("exact") the pipeline is one frame
+  deep and keeps the reference's dataflow.  Untrackable classes (or
+  unequal object capacities) take the lagfuse fallback
+  (`_track_models_device`).  In steady state no prefused frame waits on
+  the device.
 - ``process_frame(frame, gt_pose=...)`` in either mode: the same general
   step with the global pose set to the given ground-truth pose in place of
   its track (objects are still tracked); in static mode it skips the
@@ -30,14 +49,14 @@ The stopwatch times the host's dispatch of each stage (``Preprocess``,
 only ``Run``), and ``Config.diag_export_dir`` writes the per-frame metrics
 CSV and alignment-error images (utils/diag_export).
 
-The pipelined multi-object schedule (with its windowed object tracker and
-windowed id projection), the Co-Fusion segmenter, redetection and
-relocalisation come with later slices; asking for them raises
-NotImplementedError.
+The Co-Fusion segmenter, redetection and relocalisation come with later
+slices; asking for them raises NotImplementedError.  Multi-device sharding
+of the object axis (`_shard_model_axis`) is ROADMAP queue 1 item 14.
 
 The JAX package jits each stage, donates the map buffers and prewarms its
-compile cache.  PyTorch runs eagerly, so none of that has a counterpart
-here: the map's buffers are updated in place instead of donated.
+compile cache (`prewarm_next_buckets`, `_note_prewarm`).  PyTorch runs
+eagerly, so none of that has a counterpart here: the map's buffers are
+updated in place instead of donated, and nothing is compiled ahead.
 
 Pose conventions (as the reference): every model's `pose` is the camera
 pose in that model's frame; model 0's is camera->world, and an object's
@@ -46,6 +65,7 @@ object->world pose is global_pose @ inverse(object_pose).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time as _time
 from typing import Callable, Dict, List, NamedTuple, Optional
@@ -62,6 +82,7 @@ from maskfusion_tpu_torch.ops import clean as clean_ops
 from maskfusion_tpu_torch.ops import fill_in as fill_ops
 from maskfusion_tpu_torch.ops import fuse as fuse_ops
 from maskfusion_tpu_torch.ops import preprocess as pp
+from maskfusion_tpu_torch.ops import reduce as red
 from maskfusion_tpu_torch.ops import splat as splat_ops
 from maskfusion_tpu_torch.segmentation import create_segmenter
 from maskfusion_tpu_torch.segmentation.mf_segmentation import ModelInfo
@@ -85,6 +106,33 @@ def _slot_class(n_live: int, floor: int) -> int:
     while c < n:
         c <<= 1
     return c
+
+
+def _halo_crop(a: torch.Tensor, oy: int, ox: int, size: int, halo: int,
+               fill: float) -> torch.Tensor:
+    """The (size, size) crop of an (H, W, C) image starting at
+    (oy - halo, ox - halo), `fill` where it reaches past the image: the
+    crop of the image padded by `halo` on every side, without padding the
+    whole image."""
+    H, W = a.shape[:2]
+    out = torch.full((size, size) + a.shape[2:], fill, dtype=a.dtype,
+                     device=a.device)
+    y0, x0 = oy - halo, ox - halo
+    ys, ye = max(0, y0), min(H, y0 + size)
+    xs, xe = max(0, x0), min(W, x0 + size)
+    out[ys - y0:ye - y0, xs - x0:xe - x0] = a[ys:ye, xs:xe]
+    return out
+
+
+def _gated(gate: Optional[torch.Tensor], new: tuple, state) -> tuple:
+    """The predictions (vmap, nmap, rgb) `new` where the device bool `gate`
+    holds, the state's previous ones where it does not (a frame whose
+    tracking failed keeps its predictions, engine.py:585-590 of the JAX
+    package); `new` itself without a gate."""
+    if gate is None:
+        return new
+    return tuple(torch.where(gate, a, b) for a, b in zip(
+        new, (state.pred_vmap, state.pred_nmap, state.pred_rgb)))
 
 
 class MapState(NamedTuple):
@@ -129,10 +177,14 @@ class Model:
     initial_c2w_inv: Optional[np.ndarray] = None
     conf_threshold: float = 10.0
     max_depth: float = 100.0
-    prev_pose: Optional[torch.Tensor] = None   # pose before this frame's track
+    prev_pose: Optional[torch.Tensor] = None   # pose before this frame's
+                                               # track (a host array when
+                                               # unpacked from a hostvec)
     pose_log: List = dataclasses.field(default_factory=list)
     last_bucket: int = 0      # shrink-hysteresis input for choose_bucket
-    count_est: int = -1       # last fetched surfel count (-1: unknown)
+    count_est: int = -1       # last fetched surfel count (-1: unknown);
+                              # the pipelined schedules size buckets from
+                              # it without fetching
     window: Optional[tuple] = None  # (oy, ox) object-window origin, or None
                                     # when the mask does not fit the window
     fused_once: bool = False  # first-fuse weight boost applied yet?
@@ -173,15 +225,6 @@ def _check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             "seg_method='cofusion' is not ported yet (ROADMAP queue 1 item "
             "11)")
-    # the JAX engine runs its pipelined schedule only with a device edge
-    # map, i.e. for the maskfusion segmenter (engine.py:1149-1153)
-    if cfg.pipelined_multiobject and cfg.seg_method in ("maskfusion",
-                                                        "mask_fusion"):
-        raise NotImplementedError(
-            "pipelined_multiobject=True: the pipelined and prefused "
-            "multi-object schedules are not ported yet (ROADMAP queue 1 "
-            "item 9); pass pipelined_multiobject=False for the synchronous "
-            "schedule")
     if cfg.enable_redetection:
         raise NotImplementedError(
             "enable_redetection: model redetection needs the fern model "
@@ -190,7 +233,7 @@ def _check_supported(cfg: Config) -> None:
 
 class MaskFusion:
     """Host-side engine with the public surface of the JAX package's
-    MaskFusion, for the -static and the synchronous multi-object frame."""
+    MaskFusion, for the -static and the multi-object frame."""
 
     def __init__(self, resolution: Resolution, intr: CameraIntrinsics,
                  config: Optional[Config] = None, device=None):
@@ -215,6 +258,13 @@ class MaskFusion:
         # (expiry tick, model id, spawn mask): phantom re-spawn claims, see
         # _segment_and_update_models
         self._recent_spawns: List = []
+        # the pipelined schedules: frames whose host stage is pending, the
+        # finished frame's global pose while its host stage runs, and the
+        # newest segmentation on the device as (tick, tensor)
+        self._pending: collections.deque = collections.deque()
+        self._pipelined_active = False
+        self._np_glob_pose: Optional[np.ndarray] = None
+        self._seg_dev = None
         self.stopwatch = Stopwatch()
         self._diag_exporter = None
         if self.cfg.diag_export_dir:
@@ -241,8 +291,13 @@ class MaskFusion:
         self._obj_window = _window_size(self.cfg, H, W)
         # (capacity, slot) -> dead padding-slot state (_dummy_obj_state)
         self._dummy_state_cache: Dict = {}
-        # frames whose object models fused in their windows
+        # frames whose object models fused in their windows (in the
+        # pipelined schedules: also tracked and projected in them)
         self.windowed_fuses = 0
+        # host stages that had to wait for their frame's device results
+        # (the pipelined schedules' only synchronise: a forced drain, or a
+        # drain asked for)
+        self.forced_waits = 0
         # the bilateral's metric footprint stays constant across
         # resolutions: pixel radius and spatial sigma scale with width
         bl_scale = W / 640.0
@@ -287,46 +342,117 @@ class MaskFusion:
         (`is_object`) tracks with the object weights and damping; `warm`,
         the camera's world motion from the global track, starts its solve
         from "world-static" (Config.object_warm_start)."""
-        res = self._solve(state.pose, state.pred_vmap, state.pred_nmap,
-                          state.pred_rgb, state.so3_intensity, mask_id, prep,
-                          is_object, warm)
+        res = self._solve(state.pose, self._model_pyramids(
+            state.pose, state.pred_vmap, state.pred_nmap, state.pred_rgb),
+            state.so3_intensity, mask_id, prep.frame_pyr, is_object, warm,
+            self.intr)
         return TrackResult(
             pose=se3.make_pose(res.R, res.t), delta=res.delta,
             icp_error=res.icp_error, icp_count=res.icp_count,
             rgb_error=res.rgb_error, rgb_count=res.rgb_count,
             cov_diag=torch.diagonal(odo.covariance(res.A)))
 
-    def track_objects(self, states: List[MapState], mask_ids: List[int],
+    def track_objects(self, states: List[MapState], mask_ids,
                       prep: Preprocessed,
                       warm: Optional[torch.Tensor] = None):
         """Every object model in ONE solve over a leading slot axis
         (engine.py:318-356 of the JAX package, a jax.vmap over objects; the
         reference tracks them in turn, MaskFusion.cpp:246-278).  Each slot
-        has its own pose, model pyramids, SO(3) intensity and mask id; all
-        share the frame pyramids.  Returns the new poses (N, 4, 4) and each
-        slot's translation jump (N,), on the device."""
-        res = self._solve(
-            *(torch.stack([getattr(s, f) for s in states])
-              for f in ("pose", "pred_vmap", "pred_nmap", "pred_rgb",
-                        "so3_intensity")),
-            self._upload(np.asarray(mask_ids, np.int32)), prep, True, warm)
+        has its own pose, model pyramids, SO(3) intensity and mask id (a
+        host list, or an (N,) device tensor); all share the frame
+        pyramids.  Returns the new poses (N, 4, 4) and each slot's
+        translation jump (N,), on the device."""
+        pose, pv, pn, pc, so3 = (torch.stack([getattr(s, f) for s in states])
+                                 for f in ("pose", "pred_vmap", "pred_nmap",
+                                           "pred_rgb", "so3_intensity"))
+        if not isinstance(mask_ids, torch.Tensor):
+            mask_ids = self._upload(np.asarray(mask_ids, np.int32))
+        res = self._solve(pose, self._model_pyramids(pose, pv, pn, pc), so3,
+                          mask_ids, prep.frame_pyr, True, warm, self.intr)
         return (se3.make_pose(res.R, res.t),
                 torch.linalg.vector_norm(res.delta[:, :3, 3], dim=-1))
 
-    def _solve(self, pose, pred_vmap, pred_nmap, pred_rgb, so3_intensity,
-               mask_id, prep: Preprocessed, is_object: bool,
-               warm: Optional[torch.Tensor]) -> odo.OdometryResult:
+    def track_objects_win(self, states: List[MapState],
+                          mask_ids: torch.Tensor, windows,
+                          origins: torch.Tensor, prep: Preprocessed,
+                          warm: Optional[torch.Tensor] = None):
+        """Windowed object tracking (track_objects_win, engine.py:358-470
+        of the JAX package): the one solve of `track_objects`, each slot on
+        its (OW, OW) window of both pyramid sides.  `windows` holds each
+        slot's host (oy, ox); `origins` the same as an (N, 2) float32
+        device tensor, from which each slot's shifted principal point
+        (cx - ox, cy - oy) is computed in float32 on the device.  Every
+        frame level is cropped at (oy >> lv, ox >> lv); the model side is
+        built on a crop with a 32-pixel halo (NaN vertices and normals,
+        black colour) and trimmed per level, its photometric erosion
+        computed on the halo image before the trim; the SO(3) intensity is
+        cropped at the coarsest level.  Model pixels projecting out of the
+        window drop out of the solve (the JAX package's documented
+        deviation from the full-frame reference path)."""
+        cfg = self.cfg
+        OW = self._obj_window
+        L = cfg.num_pyr_levels
+        P = 32
+
+        def crop(a, lv):
+            n = OW >> lv
+            return torch.stack([a[oy >> lv:(oy >> lv) + n,
+                                  ox >> lv:(ox >> lv) + n]
+                                for oy, ox in windows])
+
+        frame = odo.FramePyramids(*(tuple(crop(a, lv)
+                                          for lv, a in enumerate(f))
+                                    for f in prep.frame_pyr))
+
+        def halo(field: str, fill: float):
+            return torch.stack([_halo_crop(getattr(st, field), oy, ox,
+                                           OW + 2 * P, P, fill)
+                                for st, (oy, ox) in zip(states, windows)])
+
+        pose = torch.stack([st.pose for st in states])
+        padded = self._model_pyramids(pose, halo("pred_vmap", float("nan")),
+                                      halo("pred_nmap", float("nan")),
+                                      halo("pred_rgb", 0.0))
+
+        def trim(a, lv):
+            p, n = P >> lv, OW >> lv
+            return a[:, p:p + n, p:p + n]
+
+        model = odo.ModelPyramids(
+            *(tuple(trim(a, lv) for lv, a in enumerate(f))
+              for f in padded[:4]),
+            last_valids=tuple(trim(red.rgb_last_valid(g), lv)
+                              for lv, g in enumerate(padded.intensities)))
+        so3 = torch.stack([st.so3_intensity for st in states])
+        lc = L - 1
+        so3 = torch.stack([so3[k, oy >> lc:(oy >> lc) + (OW >> lc),
+                               ox >> lc:(ox >> lc) + (OW >> lc)]
+                           for k, (oy, ox) in enumerate(windows)])
+        i = self.intr
+        intr = CameraIntrinsics(i.fx, i.fy, i.cx - origins[:, 1:2],
+                                i.cy - origins[:, 0:1])
+        res = self._solve(pose, model, so3, mask_ids, frame, True, warm,
+                          intr)
+        return (se3.make_pose(res.R, res.t),
+                torch.linalg.vector_norm(res.delta[:, :3, 3], dim=-1))
+
+    def _model_pyramids(self, pose, pred_vmap, pred_nmap, pred_rgb):
+        return odo.build_model_pyramids(
+            pred_vmap, pred_nmap, pred_rgb, pose, self.cfg.num_pyr_levels,
+            self.cfg.max_depth_rgb)
+
+    def _solve(self, pose, model_pyr: odo.ModelPyramids, so3_intensity,
+               mask_id, frame_pyr: odo.FramePyramids, is_object: bool,
+               warm: Optional[torch.Tensor],
+               intr: CameraIntrinsics) -> odo.OdometryResult:
         """The tracking solve of one model, or of N models stacked on a
         leading slot axis (an (N,) tensor of mask ids)."""
         cfg = self.cfg
-        model_pyr = odo.build_model_pyramids(
-            pred_vmap, pred_nmap, pred_rgb, pose, cfg.num_pyr_levels,
-            cfg.max_depth_rgb)
         pose0 = pose if warm is None else pose @ warm
         so3_pyr = [None] * (cfg.num_pyr_levels - 1) + [so3_intensity]
         return odo.get_incremental_transformation(
-            pose0[..., :3, 3], pose0[..., :3, :3], prep.frame_pyr, model_pyr,
-            tuple(so3_pyr), self.intr,
+            pose0[..., :3, 3], pose0[..., :3, :3], frame_pyr, model_pyr,
+            tuple(so3_pyr), intr,
             rgb_only=cfg.rgb_only,
             icp_weight=(cfg.object_icp_weight if is_object
                         else cfg.icp_weight),
@@ -347,9 +473,13 @@ class MaskFusion:
             gn_step_eps=cfg.gn_step_eps)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A small host array on the device without waiting for the
-        device's queue: a pinned copy, sent non-blocking."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        """A host array on the device without waiting for the device's
+        queue."""
+        return self._send(torch.from_numpy(np.ascontiguousarray(a)))
+
+    def _send(self, t: torch.Tensor) -> torch.Tensor:
+        """A host tensor on the device: a pinned copy, sent non-blocking
+        (a copy from pageable memory would wait for the device)."""
         if self.device.type == "cuda":
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
@@ -383,13 +513,18 @@ class MaskFusion:
                    conf_threshold: float, max_depth: float,
                    weight_multiplier: float, bucket: int,
                    parity: Optional[int], compact: bool,
-                   intr: CameraIntrinsics):
+                   intr: CameraIntrinsics,
+                   gate: Optional[torch.Tensor] = None):
         """Render, fuse, patch the index map, clean and predict one model
         on an image of the inputs' size seen through `intr`: the full frame,
         or an object's window with its shifted principal point.  Updates
         state.map's tensors in place (prefix write-back) and returns the
         map, the unfilled prediction, the removed and appended counts and
-        the inverse pose."""
+        the inverse pose.  `gate`, a device bool (the prefused schedule's
+        tracking-ok), selects the cleaned prefix against the one that went
+        in BEFORE the write-back (fuse and clean leave `work` untouched;
+        the write-back is what overwrites it), and zeroes the counts where
+        it is false; the caller selects the predictions."""
         cfg = self.cfg
         H, W = filt.shape
         time_delta = cfg.effective_time_delta()
@@ -429,7 +564,14 @@ class MaskFusion:
             time_delta, conf_threshold, max_depth, cfg.outlier_coefficient,
             unstable_time_limit=cfg.unstable_time_limit, compact=compact)
         appended = fres.map.count - work.count
-        final_map = sm.write_back(full_map, cres.map)
+        removed = cres.removed
+        cres_map = cres.map
+        if gate is not None:
+            cres_map = sm.SurfelMap(*(torch.where(gate, a, b)
+                                      for a, b in zip(cres.map, work)))
+            removed = torch.where(gate, removed, 0)
+            appended = torch.where(gate, appended, 0)
+        final_map = sm.write_back(full_map, cres_map)
         # prediction reuses the post-fuse index map gated by clean's keep
         idx = im2.index
         keep_img = torch.where(idx >= 0, cres.keep[idx.clamp(min=0).long()],
@@ -441,22 +583,25 @@ class MaskFusion:
             time_delta, cfg.depth_cutoff)
         pred = splat_ops.combined_predict(im2_gated, intr, cfg.depth_cutoff,
                                           coarse=(im_coarse, 2))
-        return final_map, pred, cres.removed, appended, pose_inv
+        return final_map, pred, removed, appended, pose_inv
 
     def fuse_clean_predict(self, state: MapState, prep: Preprocessed, rgb,
                            seg_mask, prev_pose, time: float, mask_id: int,
                            conf_threshold: float, max_depth: float,
                            weight_multiplier: float, allow_fill_in: bool,
                            bucket: int, parity: Optional[int] = None,
-                           compact: bool = True):
+                           compact: bool = True,
+                           gate: Optional[torch.Tensor] = None):
         """engine.py:472-598 of the JAX package.  Updates state.map's
-        tensors in place (prefix write-back)."""
+        tensors in place (prefix write-back).  Where the device bool `gate`
+        is false, the map, the predictions and the counts stay as they came
+        in (last_delta is not gated, as in the JAX package)."""
         cfg = self.cfg
         lv0 = prep.levels[0]
         final_map, pred, removed, appended, pose_inv = self._fuse_core(
             state, prep.vmap_raw, lv0["vmap"], lv0["nmap"], prep.filt_depth,
             rgb, seg_mask, time, mask_id, conf_threshold, max_depth,
-            weight_multiplier, bucket, parity, compact, self.intr)
+            weight_multiplier, bucket, parity, compact, self.intr, gate)
         if allow_fill_in:
             filled = fill_ops.fill_in(pred, rgb, lv0["vmap"], lv0["nmap"])
             pv, pn, pc = filled.vmap, filled.nmap, filled.rgb
@@ -464,6 +609,7 @@ class MaskFusion:
                 pc = rgb.to(torch.float32)
         else:
             pv, pn, pc = pred.vmap, pred.nmap, pred.rgb
+        pv, pn, pc = _gated(gate, (pv, pn, pc), state)
         new_state = MapState(
             map=final_map, pose=state.pose, last_delta=pose_inv @ prev_pose,
             pred_vmap=pv, pred_nmap=pn, pred_rgb=pc,
@@ -483,13 +629,16 @@ class MaskFusion:
                                    mask_id: int, conf_threshold: float,
                                    max_depth: float, weight_multiplier: float,
                                    oy: int, ox: int, bucket: int,
-                                   parity: Optional[int]) -> MapState:
+                                   parity: Optional[int],
+                                   gate: Optional[torch.Tensor] = None
+                                   ) -> MapState:
         """An object's fuse + clean + predict on its (OW, OW) window at
         (oy, ox) (engine.py:678-775 of the JAX package): every image-side
         pass runs on the crop with the shifted principal point; the window
         holds the object's mask and margin, so everything inside it sees
         the full-frame pass's pixels.  The prediction is pasted into a NaN
-        canvas (zeros for rgb); objects never fill in."""
+        canvas (zeros for rgb); objects never fill in.  `gate` as in
+        fuse_clean_predict."""
         H, W = self.res.height, self.res.width
         OW = self._obj_window
         win = (slice(oy, oy + OW), slice(ox, ox + OW))
@@ -498,13 +647,14 @@ class MaskFusion:
             state, prep.vmap_raw[win], lv0["vmap"][win], lv0["nmap"][win],
             prep.filt_depth[win], rgb[win], seg_mask[win], time, mask_id,
             conf_threshold, max_depth, weight_multiplier, bucket, parity,
-            True, self._intr_shift(oy, ox))
+            True, self._intr_shift(oy, ox), gate)
         pv = torch.full((H, W, 3), float("nan"), device=self.device)
         pn = torch.full((H, W, 3), float("nan"), device=self.device)
         pc = torch.zeros((H, W, 3), device=self.device)
         pv[win] = pred.vmap
         pn[win] = pred.nmap
         pc[win] = pred.rgb
+        pv, pn, pc = _gated(gate, (pv, pn, pc), state)
         return MapState(
             map=final_map, pose=state.pose, last_delta=pose_inv @ prev_pose,
             pred_vmap=pv, pred_nmap=pn, pred_rgb=pc,
@@ -513,20 +663,32 @@ class MaskFusion:
     def fuse_stage(self, glob_state: MapState, obj_states, prep: Preprocessed,
                    rgb, seg_mask, prev_poses: torch.Tensor, time: float,
                    obj_params: np.ndarray, glob_bucket: int, obj_bucket: int,
-                   parity: Optional[int], windowed: bool = False):
+                   parity: Optional[int], windowed: bool = False,
+                   gate: Optional[torch.Tensor] = None,
+                   ids_guard: Optional[torch.Tensor] = None):
         """Every model's fuse + clean + predict (pipelined_fuse_stage,
-        engine.py:957-1041 of the JAX package, as its synchronous schedule
-        calls it: no tracking gate, no ids guard).  The global model first
+        engine.py:957-1041 of the JAX package).  The global model first
         (fill-in, compaction), then each object slot, in its window when
         `windowed`.  `prev_poses` stacks the pre-track poses (row 0 global,
         then one a slot); `obj_params` holds one host row a slot,
         [mask_id, conf_t, max_depth, weight_mult, oy, ox].  A dead slot
         (mask id DEAD_SLOT_ID) would fuse no pixel, so it is skipped and
-        comes back as it went in.  Returns (global state, object states)."""
+        comes back as it went in.  The prefused schedule passes `gate`, the
+        same frame's device-side tracking-ok (a false gate selects every
+        model's update away), and `ids_guard`, the same frame's id
+        projection: a pixel where the lagging segmentation and the
+        projection both claim a model, and not the same one, becomes 255
+        (semantic-ignore: no model fuses it, no clean penalty fires); where
+        the projection shows nothing the segmentation's label stays, so
+        disocclusions fuse into the global map and a newborn object can
+        bootstrap.  Returns (global state, object states)."""
+        if ids_guard is not None:
+            seg_mask = torch.where((seg_mask == ids_guard) | (ids_guard == 0),
+                                   seg_mask, 255).to(torch.uint8)
         new_glob, _removed, _app = self.fuse_clean_predict(
             glob_state, prep, rgb, seg_mask, prev_poses[0], time, 0,
             self.cfg.conf_threshold_global, self.cfg.depth_cutoff,
-            self.cfg.weight_multiplier, True, glob_bucket, parity, True)
+            self.cfg.weight_multiplier, True, glob_bucket, parity, True, gate)
         new_objs = []
         for k, (state, row) in enumerate(zip(obj_states, obj_params)):
             mid, conf_t, max_d, wm, oy, ox = row.tolist()
@@ -536,12 +698,12 @@ class MaskFusion:
                 new_objs.append(self.fuse_clean_predict_obj_win(
                     state, prep, rgb, seg_mask, prev_poses[k + 1], time,
                     int(mid), conf_t, max_d, wm, int(oy), int(ox),
-                    obj_bucket, parity))
+                    obj_bucket, parity, gate))
             else:
                 new_objs.append(self.fuse_clean_predict(
                     state, prep, rgb, seg_mask, prev_poses[k + 1], time,
                     int(mid), conf_t, max_d, wm, False, obj_bucket, parity,
-                    True)[0])
+                    True, gate)[0])
         return new_glob, tuple(new_objs)
 
     def fused_static_step(self, state: MapState, rgb, depth, time: float,
@@ -605,6 +767,118 @@ class MaskFusion:
         return torch.where(torch.isfinite(nearest), ids_vec[arg],
                            0).to(torch.uint8)
 
+    def project_ids_obj_win(self, m: sm.SurfelMap, pose: torch.Tensor,
+                            time: float, max_depth: float, bucket: int,
+                            oy: int, ox: int) -> torch.Tensor:
+        """A windowed object's depth in the (depth, id) projection
+        (engine.py:777-788 of the JAX package): render at confidence 12 and
+        predict, without the coarse pass, on its (OW, OW) window with the
+        shifted principal point, pasted into a +inf canvas."""
+        H, W = self.res.height, self.res.width
+        OW = self._obj_window
+        intr = self._intr_shift(oy, ox)
+        im = splat_ops.render_index_map(
+            sm.prefix_view(m, bucket), se3.pose_inverse(pose), intr, OW, OW,
+            time, self.cfg.effective_time_delta(), max_depth,
+            conf_threshold=12.0)
+        pred = splat_ops.combined_predict(im, intr, max_depth)
+        out = torch.full((H, W), float("inf"), device=self.device)
+        out[oy:oy + OW, ox:ox + OW] = torch.where(pred.depth > 0, pred.depth,
+                                                  float("inf"))
+        return out
+
+    def project_ids_obj_win_batched(self, maps: List[sm.SurfelMap],
+                                    poses, time: float, max_depth: float,
+                                    bucket: int, windows) -> list:
+        """The windowed objects' projections with one shared bucket, one
+        model after another (the JAX package's device stage projects each
+        slot in turn, engine.py:930-936); `windows` holds each model's host
+        (oy, ox)."""
+        return [self.project_ids_obj_win(m, p, time, max_depth, bucket,
+                                         oy, ox)
+                for m, p, (oy, ox) in zip(maps, poses, windows)]
+
+    def pipelined_device_stage(self, glob_state: MapState, obj_states,
+                               obj_aux: np.ndarray, rgb, depth, prev_seg,
+                               time: float, glob_bucket: int,
+                               obj_bucket: int, windowed: bool = False):
+        """A pipelined frame's device stage (pipelined_device_stage,
+        engine.py:876-955 of the JAX package): preprocess, the global track,
+        the objects' warm start and their one solve (in their windows when
+        `windowed`), the (depth, id) projection at the new poses and the
+        non-edge binary of the edge map.  Nothing here waits on the device.
+
+        `obj_states` are the padded object slots, live models first;
+        `obj_aux` one host row a slot, [mask_id, oy, ox] (DEAD_SLOT_ID on a
+        dead slot), uploaded once.  A dead slot has an empty map and
+        all-invalid predictions: it is neither solved nor projected, and
+        keeps its pose with a zero jump (the JAX package solves it and
+        selects its lane away).  Returns (prep, global pose, object poses,
+        hostvec, ids, nonedge, prev_poses, okf): `hostvec` packs over the
+        padded slot axis, as the JAX package packs it, every model's surfel
+        count, the global covariance maximum, each slot's jump, the
+        pre-track poses and the world poses (object->world = global @
+        inverse(object)); `okf` is the device bool cov <= threshold."""
+        cfg = self.cfg
+        n_slots = len(obj_states)
+        n_live = int((obj_aux[:, 0] < DEAD_SLOT_ID).sum())
+        live = obj_aux[:n_live]
+        # the slot rows and the projection's id vector in one upload
+        aux = self._upload(np.concatenate(
+            [obj_aux.reshape(-1), [0.0], live[:, 0]]).astype(np.float32))
+        rows = aux[:3 * n_slots].reshape(n_slots, 3)[:n_live]
+        ids_vec = aux[3 * n_slots:].to(torch.int32)
+        prep = self.preprocess(rgb, depth, prev_seg)
+        tr = self.track(glob_state, prep, 0)
+        warm = (se3.pose_inverse(glob_state.pose) @ tr.pose
+                if cfg.object_warm_start else None)
+        cov = tr.cov_diag.max()
+        states = list(obj_states[:n_live])
+        windows = [(int(oy), int(ox)) for _, oy, ox in live]
+        poses, norms = [], torch.zeros((0,), device=self.device)
+        if n_live and windowed:
+            poses, norms = self.track_objects_win(
+                states, rows[:, 0].to(torch.int32), windows, rows[:, 1:],
+                prep, warm)
+        elif n_live == 1:
+            # one object on the full frame takes the one-model solve, as in
+            # the synchronous schedule (the same numbers as a one-slot
+            # batch up to rounding, which the object's solve amplifies)
+            trm = self.track(states[0], prep, int(live[0, 0]),
+                             is_object=True, warm=warm)
+            poses = trm.pose[None]
+            norms = torch.linalg.vector_norm(trm.delta[:3, 3])[None]
+        elif n_live:
+            poses, norms = self.track_objects(
+                states, rows[:, 0].to(torch.int32), prep, warm)
+        new_poses = list(poses) + [st.pose for st in obj_states[n_live:]]
+        jumps = torch.cat([norms, torch.zeros((n_slots - n_live,),
+                                              device=self.device)])
+        cutoff = cfg.depth_cutoff
+        depths = [self.project_ids(glob_state.map, tr.pose, time, cutoff,
+                                   glob_bucket)]
+        maps = [st.map for st in states]
+        if windowed:
+            depths += self.project_ids_obj_win_batched(
+                maps, new_poses[:n_live], time, cutoff, obj_bucket, windows)
+        else:
+            depths += self.project_ids_batched(maps, new_poses[:n_live],
+                                               time, cutoff, obj_bucket)
+        ids = self.combine_ids(depths, ids_vec)
+        lv0 = prep.levels[0]
+        _edge, nonedge = self.segmenter.edge_binary(lv0["vmap"], lv0["nmap"])
+        counts = torch.stack([glob_state.map.count]
+                             + [st.map.count for st in obj_states])
+        prev_poses = torch.stack([glob_state.pose]
+                                 + [st.pose for st in obj_states])
+        world_poses = torch.stack(
+            [tr.pose] + [tr.pose @ se3.pose_inverse(p) for p in new_poses])
+        hostvec = torch.cat([counts.to(torch.float32), cov[None], jumps,
+                             prev_poses.reshape(-1), world_poses.reshape(-1)])
+        okf = cov <= self._cov_thresh
+        return (prep, tr.pose, tuple(new_poses), hostvec, ids, nonedge,
+                prev_poses, okf)
+
     def erase_error(self, m: sm.SurfelMap, seg_mask: torch.Tensor,
                     mask_id: int, depth: torch.Tensor, pose: torch.Tensor,
                     bucket: int):
@@ -649,14 +923,22 @@ class MaskFusion:
     def _bucket_for(self, model: Model) -> int:
         """A model's per-frame processing bucket: pow2 steps, with the
         object floor and headroom for object models (engine.py:1388-1416
-        of the JAX package).  The count is fetched from the device."""
+        of the JAX package).  The synchronous schedule fetches the count
+        from the device; the pipelined ones read `count_est`, the count
+        their last finished frame's hostvec brought back, and never wait
+        (a bucket a few frames stale is safe: overflowing appends are
+        dropped and re-apply on a later frame, and the bucket has
+        headroom)."""
         tun = self._tuning
         if model.model_id == 0:
             minimum, headroom = tun.min_bucket_global, tun.headroom_global
         else:
             minimum, headroom = tun.min_bucket_object, tun.headroom_object
-        count = model.surfel_count
-        model.count_est = count
+        if self._pipelined_active and model.count_est >= 0:
+            count = model.count_est
+        else:
+            count = model.surfel_count
+            model.count_est = count
         b = sm.choose_bucket(count, model.state.map.capacity,
                              headroom=headroom, minimum=minimum,
                              current=model.last_bucket, pow2_steps=True)
@@ -756,20 +1038,26 @@ class MaskFusion:
             depths += [self.project_ids(m.state.map, m.state.pose, time,
                                         cutoff, bucket=self._bucket_for(m))
                        for m in objs]
-        ids_vec = torch.tensor([m.model_id for m in self.models],
-                               dtype=torch.int32, device=self.device)
+        ids_vec = self._upload(np.asarray([m.model_id for m in self.models],
+                                          np.int32))
         return self.combine_ids(depths, ids_vec)
 
     def _segment_and_update_models(self, frame: FrameData, prep, rgb,
-                                   ids: np.ndarray) -> np.ndarray:
+                                   ids: np.ndarray, nonedge=None,
+                                   tick: Optional[int] = None) -> np.ndarray:
         """Host segmentation + model lifecycle for one frame
         (MaskFusion.cpp:289-374; engine.py:1623-1804 of the JAX package):
         segmenter, phantom re-spawn claims, spawning (with optional spawn
         subtraction), per-model maxDepth / confidence ramp.  Returns the full
-        segmentation mask."""
+        segmentation mask.  The pipelined schedules pass the frame's
+        prefetched non-edge binary (`nonedge`, a host array: the edge map
+        does not run again) and its `tick`; a spawn there starts at the
+        finished frame's global pose (`_np_glob_pose`), not the newest
+        tracked one, which runs up to pipeline_depth frames ahead."""
         cfg = self.cfg
         glob = self.models[0]
-        tick = self.tick
+        if tick is None:
+            tick = self.tick
         if self.spawn_offset < cfg.model_spawn_offset:
             self.spawn_offset += 1
         allow_new = (
@@ -780,7 +1068,9 @@ class MaskFusion:
         infos = [ModelInfo(m.model_id, m.class_id) for m in self.models]
         vmap, nmap = prep.levels[0]["vmap"], prep.levels[0]["nmap"]
         kw = {}
-        if hasattr(self.segmenter, "edge_binary"):
+        if nonedge is not None:
+            kw["nonedge"] = nonedge
+        elif hasattr(self.segmenter, "edge_binary"):
             # the device part: edge map (kernel 3) -> non-edge binary
             kw["nonedge"] = self.segmenter.edge_binary(vmap, nmap)[1].cpu()
             self._mark("segment_device")
@@ -833,8 +1123,9 @@ class MaskFusion:
             md = seg_result.model_data[-1]
             # the newborn starts at the camera pose, initialised from the
             # spawn frame's masked pixels with the first-fuse weight 100
-            gp = glob.state.pose
-            seg_dev = torch.from_numpy(seg_mask_np).to(self.device)
+            gp = (self._upload(self._np_glob_pose)
+                  if self._np_glob_pose is not None else glob.state.pose)
+            seg_dev = self._upload(seg_mask_np)
             new_state = self.init_map(
                 prep, rgb, seg_dev, new_id, gp.clone(), float(tick),
                 cfg.object_surfel_capacity, weighting=100.0)
@@ -871,8 +1162,35 @@ class MaskFusion:
         self._update_windows(seg_mask_np)
         return seg_mask_np
 
-    def _dispatch_fuse(self, prep, rgb, seg_mask_np: np.ndarray, tick: int,
-                       do_fuse: bool) -> None:
+    def _obj_params(self, objs: List[Model], n_slots: int) -> np.ndarray:
+        """The fuse stage's host rows, one a slot: [mask_id, conf_t,
+        max_depth, weight_mult, oy, ox], dead rows after the live ones (a
+        model's first fuse weighs 100)."""
+        cfg = self.cfg
+        return np.asarray(
+            [[m.model_id, m.conf_threshold,
+              min(cfg.depth_cutoff, m.max_depth),
+              100.0 if not m.fused_once else cfg.weight_multiplier,
+              *(m.window or (0, 0))] for m in objs]
+            + [[DEAD_SLOT_ID, 1.0, cfg.depth_cutoff, 1.0, 0, 0]]
+            * (n_slots - len(objs)), np.float32).reshape(n_slots, 6)
+
+    def _dev(self, a) -> torch.Tensor:
+        """A pose on the device: a host array (unpacked from a hostvec) is
+        uploaded without waiting."""
+        if isinstance(a, torch.Tensor):
+            return a
+        return self._upload(np.asarray(a, np.float32))
+
+    def _stack_poses(self, poses) -> torch.Tensor:
+        """(n, 4, 4) on the device: ONE upload when every pose is a host
+        array, as it is in the pipelined schedules' steady state."""
+        if all(isinstance(p, np.ndarray) for p in poses):
+            return self._upload(np.stack(poses).astype(np.float32))
+        return torch.stack([self._dev(p) for p in poses])
+
+    def _dispatch_fuse(self, prep, rgb, seg_mask, tick: int, do_fuse: bool,
+                       seg_tick: Optional[int] = None) -> None:
         """fuse + clean + predict for every model (MaskFusion.cpp:539-569;
         engine.py:1806-1911 of the JAX package).  With
         batch_object_tracking, all through `fuse_stage`: the object slots
@@ -881,11 +1199,15 @@ class MaskFusion:
         (or, in principle, for objects of different capacities, which no
         path creates: every object map is made with
         cfg.object_surfel_capacity) each model in turn.  Objects never fill
-        in, and a model's first fuse weighs 100."""
+        in, and a model's first fuse weighs 100.  `seg_mask` is a host
+        array or already on the device; `seg_tick` names the frame whose
+        segmentation it is (one frame before `tick` in the lagfuse
+        schedule), recorded with it as the newest device segmentation."""
         cfg = self.cfg
         if not do_fuse:
             return
-        seg_mask = torch.from_numpy(seg_mask_np).to(self.device)
+        if not isinstance(seg_mask, torch.Tensor):
+            seg_mask = self._upload(seg_mask)
         parity = tick % 2 if cfg.fuse_subsample_checkerboard else None
         glob, objs = self.models[0], self.models[1:]
         if cfg.batch_object_tracking and len(
@@ -896,27 +1218,22 @@ class MaskFusion:
                         and bool(objs or cfg.min_object_slots)
                         and all(m.window is not None for m in objs))
             n_slots = _slot_class(len(objs), cfg.min_object_slots)
-            pad = n_slots - len(objs)
-            eye = torch.eye(4, dtype=torch.float32, device=self.device)
-            prev_poses = torch.stack([glob.prev_pose]
-                                     + [m.prev_pose for m in objs]
-                                     + [eye] * pad)
-            obj_params = np.asarray(
-                [[m.model_id, m.conf_threshold,
-                  min(cfg.depth_cutoff, m.max_depth),
-                  100.0 if not m.fused_once else cfg.weight_multiplier,
-                  *(m.window or (0, 0))] for m in objs]
-                + [[DEAD_SLOT_ID, 1.0, cfg.depth_cutoff, 1.0, 0, 0]] * pad,
-                np.float32).reshape(n_slots, 6)
+            eye = np.eye(4, dtype=np.float32)
+            prev_poses = self._stack_poses(
+                [glob.prev_pose] + [m.prev_pose for m in objs]
+                + [eye] * (n_slots - len(objs)))
             glob.state, new_objs = self.fuse_stage(
                 glob.state, self._padded_obj_states(objs, n_slots), prep,
-                rgb, seg_mask, prev_poses, float(tick), obj_params,
+                rgb, seg_mask, prev_poses, float(tick),
+                self._obj_params(objs, n_slots),
                 glob_bucket=self._bucket_for(glob), obj_bucket=obj_bucket,
                 parity=parity, windowed=windowed)
             for m, st in zip(objs, new_objs):
                 m.state = st
                 m.fused_once = True
             self.windowed_fuses += int(windowed and bool(objs))
+            self._seg_dev = (tick if seg_tick is None else seg_tick,
+                             seg_mask)
             return
         for model in list(self.models):
             is_glob = model.model_id == 0
@@ -927,31 +1244,335 @@ class MaskFusion:
             max_d = (cfg.depth_cutoff if is_glob
                      else min(cfg.depth_cutoff, model.max_depth))
             model.state, _removed, _appended = self.fuse_clean_predict(
-                model.state, prep, rgb, seg_mask, model.prev_pose,
+                model.state, prep, rgb, seg_mask, self._dev(model.prev_pose),
                 float(tick), model.model_id, float(conf_t), float(max_d),
                 float(wm), allow_fill_in=is_glob,
                 bucket=self._bucket_for(model), parity=parity)
             model.fused_once = True
 
+    def _dispatch_fuse_prefused(self, prep, rgb, seg_dev: torch.Tensor,
+                                tick: int, prev_poses: torch.Tensor,
+                                gate: torch.Tensor, glob: Model,
+                                objs: List[Model], glob_bucket: int,
+                                obj_bucket: int, windowed: bool,
+                                ids_guard: torch.Tensor,
+                                n_slots: int) -> List[Model]:
+        """The prefused schedule's fuse (engine.py:1913-1966 of the JAX
+        package), queued right behind the same frame's device stage: its
+        pre-track poses, tracking-ok `gate` and id projection (the guard)
+        are that stage's device outputs; the host supplies the per-model
+        rows (lagged lifecycle state), uploaded once.  The JAX package then
+        re-caches its dead slots' donated buffers (_refresh_dummies); the
+        port donates nothing and skips dead slots, so it has no
+        counterpart.  `fused_once` is set provisionally: the models whose
+        first fuse this is come back, and _finish_one restores their flag
+        if the frame's gate turns out closed."""
+        parity = tick % 2 if self.cfg.fuse_subsample_checkerboard else None
+        glob.state, new_objs = self.fuse_stage(
+            glob.state, self._padded_obj_states(objs, n_slots), prep, rgb,
+            seg_dev, prev_poses, float(tick), self._obj_params(objs, n_slots),
+            glob_bucket=glob_bucket, obj_bucket=obj_bucket, parity=parity,
+            windowed=windowed, gate=gate, ids_guard=ids_guard)
+        first_fused = [m for m in objs if not m.fused_once]
+        for m, st in zip(objs, new_objs):
+            m.state = st
+            m.fused_once = True
+        self.windowed_fuses += int(windowed and bool(objs))
+        return first_fused
+
+    # ---------------------------------------------- pipelined multi-object
+    def _track_models_device(self, prep: Preprocessed):
+        """The tracking block of the lagfuse fallback with no host sync
+        (engine.py:1968-2012 of the JAX package): returns the tracked
+        models, their stacked jump norms (or None) and the global
+        covariance maximum, on the device."""
+        cfg = self.cfg
+        glob = self.models[0]
+        glob_prev_pose = glob.state.pose
+        tr = self.track(glob.state, prep, 0)
+        glob.state = glob.state._replace(pose=tr.pose)
+        warm = (se3.pose_inverse(glob_prev_pose) @ tr.pose
+                if cfg.object_warm_start else None)
+        trackable = cfg.trackable_classes
+        tracked = []
+        for model in list(self.models[1:]):
+            if (not trackable) or (model.class_id in trackable):
+                tracked.append(model)
+            else:
+                # an untracked object mirrors the camera (Model.h:263-268)
+                model.state = model.state._replace(
+                    pose=self._dev(model.initial_c2w_inv) @ tr.pose)
+        jump_stack = None
+        if tracked and (len(tracked) == 1 or not cfg.batch_object_tracking):
+            js = []
+            for model in tracked:
+                trm = self.track(model.state, prep, model.model_id,
+                                 is_object=True, warm=warm)
+                model.state = model.state._replace(pose=trm.pose)
+                js.append(torch.linalg.vector_norm(trm.delta[:3, 3]))
+            jump_stack = torch.stack(js)
+        elif tracked:
+            poses, jump_stack = self.track_objects(
+                [m.state for m in tracked], [m.model_id for m in tracked],
+                prep, warm)
+            for i, model in enumerate(tracked):
+                model.state = model.state._replace(pose=poses[i])
+        return tracked, jump_stack, tr.cov_diag.max()
+
+    def _start_async_copy(self, P: dict, **tensors) -> None:
+        """Begin the device->host copies of a pending frame's results
+        (engine.py:2014-2021 of the JAX package): on a card, each into a
+        pinned host buffer of its own, non-blocking, followed by a recorded
+        event; the record owns its buffers until _finish_one has read them
+        (no buffer is shared with a later frame).  A copy into pageable
+        memory would wait for the device.  On the CPU the tensors are
+        already on the host."""
+        cuda = self.device.type == "cuda"
+        for k, x in tensors.items():
+            if x is not None and cuda:
+                host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                host.copy_(x, non_blocking=True)
+                x = host
+            P[k] = x
+        if cuda:
+            P["ready"] = torch.cuda.Event()
+            P["ready"].record()
+
+    @staticmethod
+    def _record_ready(P: dict) -> bool:
+        """True once every copy the record's host stage reads has landed
+        (a poll; never waits).  Always true on the CPU."""
+        ev = P.get("ready")
+        return ev is None or ev.query()
+
+    def _drain_ready_pipe(self) -> None:
+        """Run the host stage of every pending frame whose results are on
+        the host; wait for the oldest only when pipeline_depth frames are
+        in flight (engine.py:2037-2046 of the JAX package)."""
+        depth = max(1, int(self.cfg.pipeline_depth))
+        while self._pending:
+            if len(self._pending) < depth and not self._record_ready(
+                    self._pending[0]):
+                break
+            self._finish_one(self._pending.popleft())
+
+    def _pipelined_step(self, frame: FrameData, rgb, depth,
+                        t0: float) -> Dict:
+        """The pipelined multi-object frame (engine.py:2048-2206 of the JAX
+        package), in either schedule (see the module docstring): first the
+        host stages of finished frames (prefused: every one whose results
+        have landed; exact: the previous frame's), then this frame's device
+        stage, and in the prefused schedule its fuse right behind it.
+        rgb_only forces the lagfuse schedule, whose host-side do_fuse
+        honours it (the prefused fuse is gated by the covariance only)."""
+        cfg = self.cfg
+        self._pipelined_active = True
+        prefused = bool(cfg.fuse_mask_lag) and not cfg.rgb_only
+        if prefused:
+            self._drain_ready_pipe()
+        elif self._pending:
+            self._finish_one(self._pending.popleft())
+
+        seg_cache = self._seg_dev
+        if (seg_cache is not None and self.last_segmentation is not None
+                and (prefused or seg_cache[0] == self.tick - 1)):
+            # prefused: the host stages re-upload each new segmentation, so
+            # the cache is the newest; exact: it must be seg(t-1)
+            prev_seg = seg_cache[1]
+        elif self.last_segmentation is not None:
+            prev_seg = self._upload(self.last_segmentation)
+            self._seg_dev = (self.tick - 1, prev_seg)
+        else:
+            prev_seg = self._zero_mask
+        glob = self.models[0]
+        objs = self.models[1:]
+        trackable = cfg.trackable_classes
+        fused_ok = (not trackable
+                    or all(m.class_id in trackable for m in objs)) and len(
+            {m.state.map.capacity for m in objs}) <= 1
+        # a schedule change (e.g. an untrackable model appeared) drains
+        # every pending frame first, so fuses stay in tick order and the
+        # `time` that time-based cleaning reads never runs backwards
+        new_kind = "prefused" if (prefused and fused_ok) else "lagfuse"
+        if self._pending and self._pending[-1]["kind"] != new_kind:
+            self.drain_pipeline()
+        if fused_ok:
+            glob_bucket = self._bucket_for(glob)
+            obj_bucket = max((self._bucket_for(m) for m in objs),
+                             default=self._tuning.min_bucket_object)
+            n_slots = _slot_class(len(objs), cfg.min_object_slots)
+            windowed = bool(n_slots and self._obj_window) and all(
+                m.window is not None for m in objs)
+            obj_aux = np.asarray(
+                [[m.model_id, *(m.window or (0, 0))] for m in objs]
+                + [[DEAD_SLOT_ID, 0, 0]] * (n_slots - len(objs)),
+                np.float32).reshape(n_slots, 3)
+            with self.stopwatch.scope("odom"):
+                (prep, gpose, oposes, hostvec, ids_dev, nonedge_dev,
+                 prev_poses_dev, okf) = self.pipelined_device_stage(
+                    glob.state, self._padded_obj_states(objs, n_slots),
+                    obj_aux, rgb, depth, prev_seg, float(self.tick),
+                    glob_bucket, obj_bucket, windowed)
+            glob.state = glob.state._replace(pose=gpose)
+            for m, p in zip(objs, oposes):
+                m.state = m.state._replace(pose=p)
+            P = dict(kind="prefused" if prefused else "lagfuse",
+                     frame=frame, prep=prep, rgb=rgb, tracked=list(objs),
+                     tick=self.tick, first_fused=[], n_slots=n_slots,
+                     count_models=list(self.models))
+            self._start_async_copy(P, ids=ids_dev, nonedge=nonedge_dev,
+                                   hostvec=hostvec)
+            if prefused:
+                with self.stopwatch.scope("fuse"):
+                    P["first_fused"] = self._dispatch_fuse_prefused(
+                        prep, rgb, prev_seg, self.tick, prev_poses_dev, okf,
+                        glob, objs, glob_bucket, obj_bucket, windowed,
+                        ids_dev, n_slots)
+            self._pending.append(P)
+        else:
+            for model in self.models:
+                model.prev_pose = model.state.pose.clone()
+            with self.stopwatch.scope("Preprocess"):
+                prep = self.preprocess(rgb, depth, prev_seg)
+            with self.stopwatch.scope("odom"):
+                tracked, jump_stack, cov = self._track_models_device(prep)
+            with self.stopwatch.scope("projection"):
+                ids_dev = self._project_ids_all(float(self.tick))
+                lv0 = prep.levels[0]
+                _edge, nonedge_dev = self.segmenter.edge_binary(lv0["vmap"],
+                                                                lv0["nmap"])
+            counts = torch.stack([m.state.map.count for m in self.models])
+            P = dict(kind="lagfuse", frame=frame, prep=prep, rgb=rgb,
+                     tracked=tracked, tick=self.tick,
+                     count_models=list(self.models))
+            self._start_async_copy(P, ids=ids_dev, nonedge=nonedge_dev,
+                                   cov=cov, jumps=jump_stack, counts=counts)
+            self._pending.append(P)
+            self._log_poses(frame)
+        out = {"tick": self.tick, "n_models": len(self.models),
+               "model_ids": [m.model_id for m in self.models],
+               "tracking_ok": self._last_tracking_ok,
+               "surfels": self._last_count, "pipelined": True}
+        self.stopwatch.record("Run", (_time.perf_counter() - t0) * 1000)
+        return out
+
+    def _finish_one(self, P: dict) -> None:
+        """The host stage of one pending frame (engine.py:2208-2305 of the
+        JAX package): read its fetched results (waiting only if they have
+        not landed), segment, update the lifecycle, and for a lagfuse
+        record queue the fuse (a prefused record queued its own).  The
+        hostvec unpacks into the models' counts, pre-track poses and logged
+        world poses; a frame whose gate was closed gives its newborns back
+        their first-fuse weight."""
+        cfg = self.cfg
+        tick = P["tick"]
+        models = P["count_models"]
+        n = len(models)
+        n_obj = n - 1
+        ev = P.get("ready")
+        if ev is not None and not ev.query():
+            self.forced_waits += 1
+            with self.stopwatch.scope("fetch"):
+                ev.synchronize()
+        if P.get("hostvec") is not None:
+            with self.stopwatch.scope("fetch"):
+                hv = P["hostvec"].numpy()
+            # the layout follows the PADDED slot axis; only the live
+            # prefix of each section is read
+            N = 1 + P["n_slots"]
+            counts = hv[:n]
+            cov = float(hv[N])
+            jumps = hv[N + 1:N + 1 + n_obj] if n_obj else None
+            p0 = N + 1 + P["n_slots"]
+            prev_poses = hv[p0:p0 + 16 * N].reshape(N, 4, 4)[:n]
+            world_poses = hv[p0 + 16 * N:p0 + 32 * N].reshape(N, 4, 4)[:n]
+            ts = P["frame"].timestamp or float(tick)
+            for i, model in enumerate(models):
+                model.prev_pose = prev_poses[i].copy()
+                model.pose_log.append({
+                    "timestamp": ts, "tick": tick,
+                    "pose": torch.from_numpy(world_poses[i].copy())})
+            self._np_glob_pose = world_poses[0].copy()
+        else:
+            with self.stopwatch.scope("fetch"):
+                counts = P["counts"].numpy()
+            cov = float(P["cov"])
+            jumps = P["jumps"].numpy() if P["jumps"] is not None else None
+        for model, c in zip(models, counts):
+            model.count_est = int(c)
+        if models:
+            self._last_count = int(counts[0])
+        tracking_ok = cov <= self._cov_thresh
+        self._last_tracking_ok = tracking_ok
+        if not tracking_ok:
+            # this frame's prefused fuse was gated away on the device: a
+            # newborn whose first fuse it carried keeps its boost
+            for m in P.get("first_fused") or []:
+                if m in self.models:
+                    m.fused_once = False
+        if jumps is not None:
+            for model, jump in zip(P["tracked"], jumps):
+                if (float(jump) > cfg.model_deactivate_jump
+                        and model in self.models):
+                    self._inactivate_model(model, "movement")
+        prefused = P["kind"] == "prefused"
+        do_fuse = tracking_ok and not self.lost and not cfg.rgb_only
+        # lagfuse records of the prefused configuration: fuse(t) goes out
+        # NOW with seg(t-1), so the device works while the host segments t
+        lag = (not prefused and cfg.fuse_mask_lag
+               and self.last_segmentation is not None)
+        if lag:
+            seg_for_fuse = self.last_segmentation
+            sc = self._seg_dev
+            if sc is not None and sc[0] == tick - 1:
+                seg_for_fuse = sc[1]        # already on the device
+            with self.stopwatch.scope("fuse"):
+                self._dispatch_fuse(P["prep"], P["rgb"], seg_for_fuse, tick,
+                                    do_fuse, seg_tick=tick - 1)
+        with self.stopwatch.scope("fetch_ids"):
+            ids = P["ids"].numpy()
+        with self.stopwatch.scope("segmentation"):
+            seg_mask_np = self._segment_and_update_models(
+                P["frame"], P["prep"], P["rgb"], ids,
+                nonedge=P["nonedge"].numpy(), tick=tick)
+        if prefused:
+            # the newest segmentation, staged for the next device stages
+            # and fuses (a pinned, non-blocking upload)
+            self._seg_dev = (tick, self._upload(seg_mask_np))
+        elif not lag:
+            with self.stopwatch.scope("fuse"):
+                self._dispatch_fuse(P["prep"], P["rgb"], seg_mask_np, tick,
+                                    do_fuse)
+        self._np_glob_pose = None
+        for model in self.models:
+            model.age += 1
+        if self._diag_exporter:
+            self._diag_exporter.record(
+                self, {"tracking_ok": tracking_ok,
+                       "surfels": self.models[0].count_est},
+                P["prep"].levels[0]["vmap"])
+
+    def drain_pipeline(self) -> None:
+        """Finish every pending pipelined frame (engine.py:2307-2312 of the
+        JAX package): after a stream's last process_frame, and before
+        reading the map state."""
+        while self._pending:
+            self._finish_one(self._pending.popleft())
+
     # --------------------------------------------------------- frame API
     def upload_frame(self, frame: FrameData) -> FrameData:
         """Stage a frame's images in device memory: a pinned host copy and
         a non-blocking transfer, so the copy overlaps device work."""
-        def up(a: np.ndarray) -> torch.Tensor:
-            t = _host_tensor(a)
-            if self.device.type == "cuda":
-                t = t.pin_memory()
-            return t.to(self.device, non_blocking=True)
-
-        return dataclasses.replace(frame, rgb=up(frame.rgb),
-                                   depth=up(frame.depth), rgb_host=frame.rgb,
-                                   depth_host=frame.host_depth())
+        return dataclasses.replace(
+            frame, rgb=self._send(_host_tensor(frame.rgb)),
+            depth=self._send(_host_tensor(frame.depth)), rgb_host=frame.rgb,
+            depth_host=frame.host_depth())
 
     def _device_frame(self, frame: FrameData):
         """The frame's images on the device (already there after
-        upload_frame)."""
+        upload_frame; otherwise sent from pinned memory without waiting)."""
         return tuple(a if isinstance(a, torch.Tensor)
-                     else _host_tensor(a).to(self.device)
+                     else self._send(_host_tensor(a))
                      for a in (frame.rgb, frame.depth))
 
     def load_state(self, state: MapState, tick: int) -> None:
@@ -998,6 +1619,12 @@ class MaskFusion:
             self._log_poses(frame)
             return {"tick": self.tick, "surfels": self._last_count,
                     "tracking_ok": True, "n_models": 1}
+        # the pipelined schedules need the device edge map, i.e. the
+        # maskfusion segmenter (engine.py:1147-1153 of the JAX package)
+        if (not cfg.static_mode and gt_pose is None
+                and cfg.pipelined_multiobject
+                and hasattr(self.segmenter, "edge_binary")):
+            return self._pipelined_step(frame, rgb, depth, t0)
         if gt_pose is not None or not cfg.static_mode:
             return self._general_step(frame, rgb, depth, gt_pose, t0)
 
@@ -1136,8 +1763,10 @@ class MaskFusion:
     def flush_diagnostics(self) -> Dict:
         """Fetch the most recent -static step's diagnostics (one
         device->host copy) and refresh the bucket estimate (engine.py:
-        2433-2462 of the JAX package).  The multi-object frame returns its
-        diagnostics directly and leaves nothing pending."""
+        2433-2462 of the JAX package).  The pipelined schedules' pending
+        frames are finished first; the synchronous multi-object frame
+        returns its diagnostics directly and leaves nothing pending."""
+        self.drain_pipeline()
         if self._pending_diag is None:
             return {}
         (icp_err, icp_cnt, rgb_cnt, cov_max, count, removed,
@@ -1186,7 +1815,16 @@ class MaskFusion:
                 for e in self.models[model_index].pose_log]
 
     def download_map(self, model_index: int = 0):
+        """A model's live surfels on the host, after the pipelined
+        schedules' pending frames are finished."""
+        self.drain_pipeline()
         return sm.download(self.models[model_index].state.map)
+
+    def synchronize(self) -> None:
+        """Until the device has run everything queued so far; pending
+        pipelined frames stay pending."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def all_models(self) -> List[Model]:
         return self.models + self.inactive_models

@@ -195,8 +195,8 @@ def make_config(args):
 
 def check_ported(args) -> None:
     """Raise NotImplementedError for a flag whose code is not ported yet,
-    naming the ROADMAP item that brings it.  (-rl and the pipelined
-    multi-object schedules raise in the engine.)"""
+    naming the ROADMAP item that brings it.  (-rl, -method cofusion and
+    redetection raise in the engine; every --pipeline schedule runs.)"""
     for attr, flag, item in _UNPORTED:
         if getattr(args, attr):
             raise NotImplementedError(
@@ -322,8 +322,11 @@ def main(argv=None, device=None):
                 if reader.has_more():
                     reader.get_next()
 
-    # the clock stops once the last frame's work has come back
-    engine.flush_diagnostics()
+    # the clock stops once the device has run every queued frame.  As in
+    # the JAX CLI, the pipelined schedules' pending host stages are not
+    # drained: the exports read what has been finished (a prefused run's
+    # pose logs lack its last pending frames)
+    engine.synchronize()
     elapsed = time.perf_counter() - t_start
     reader.close()
     fps = n / elapsed if elapsed > 0 else 0.0

@@ -39,11 +39,13 @@ def _grid(H: int, W: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _shift_edge(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """(H, W) float image shifted with edge-replicate padding."""
-    H, W = img.shape
-    p = F.pad(img[None, None], (max(0, -dx), max(0, dx), max(0, -dy),
-                                max(0, dy)), mode="replicate")[0, 0]
-    return p[max(0, dy):max(0, dy) + H, max(0, dx):max(0, dx) + W]
+    """(..., H, W) float image shifted with edge-replicate padding."""
+    H, W = img.shape[-2:]
+    p = F.pad(img.reshape((-1, 1, H, W)),
+              (max(0, -dx), max(0, dx), max(0, -dy), max(0, dy)),
+              mode="replicate").reshape(img.shape[:-2] + (H + abs(dy),
+                                                          W + abs(dx)))
+    return p[..., max(0, dy):max(0, dy) + H, max(0, dx):max(0, dx) + W]
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,10 @@ Ops:
 Each op also takes its model-side inputs with a leading slot axis (one
 object model a slot; poses (N, 3, 3) / (N, 3), model images (N, H, W, ...),
 mask ids shaped to broadcast against the frame's images) and returns one
-term per slot.  The frame-side inputs stay (H, W, ...): every slot reads
-the same frame images, broadcast, never copied.
+term per slot.  The frame-side inputs are either shared, (H, W, ...), every
+slot reading the same frame images, broadcast, never copied; or one crop a
+slot, (N, h, w, ...), as the windowed object tracker gives them, with the
+intrinsics' principal point then an (N, 1) tensor (each window's own).
 """
 
 from __future__ import annotations
@@ -97,7 +99,7 @@ def rgb_static_valid(next_image, next_depth, didx, didy, min_scale: float,
     """Iteration-invariant part of the RGB correspondence gates: 4x4
     erosion, gradient, interior and depth validity (reduce.cu:823-858).
     A slot axis enters through `mask_id` shaped (N, 1, 1)."""
-    H, W = next_image.shape
+    H, W = next_image.shape[-2:]
     nz = next_image > 0
     if next_mask is not None and mask_id is not None:
         nz = nz & (next_mask == mask_id)
@@ -137,9 +139,10 @@ def icp_associate(R_curr, t_curr, vmap_curr, nmap_curr, R_prev_inv, t_prev,
     """Projective correspondence search (ICPReduction::search,
     reduce.cu:292-366) with the dist/sine gates at this pose.  A slot
     axis enters through the poses, `vn_packed` and `mask_id` ((N, 1))."""
-    v = vmap_curr.reshape(-1, 3)
-    n = nmap_curr.reshape(-1, 3)
-    H, W = vmap_curr.shape[:2]
+    lead = vmap_curr.shape[:-3]
+    v = vmap_curr.reshape(lead + (-1, 3))
+    n = nmap_curr.reshape(lead + (-1, 3))
+    H, W = vmap_curr.shape[-3:-1]
     v_g = v @ R_curr.mT + t_curr[..., None, :]
     v_cp = (v_g - t_prev[..., None, :]) @ R_prev_inv.mT
     z = v_cp[..., 2]
@@ -159,10 +162,10 @@ def icp_associate(R_curr, t_curr, vmap_curr, nmap_curr, R_prev_inv, t_prev,
     sine = torch.linalg.vector_norm(
         torch.linalg.cross(n_g, nprev_g, dim=-1), dim=-1)
     found = (in_bounds & (sine < angle_thresh_sine) & (dist <= dist_thresh)
-             & torch.isfinite(n[:, 0]) & torch.isfinite(vn[..., 3])
-             & torch.isfinite(v[:, 0]))
+             & torch.isfinite(n[..., 0]) & torch.isfinite(vn[..., 3])
+             & torch.isfinite(v[..., 0]))
     if mask is not None and mask_id is not None:
-        found = found & (mask.reshape(-1) == mask_id)
+        found = found & (mask.reshape(lead + (-1,)) == mask_id)
     return ICPAssociation(vn=vn, found=found)
 
 
@@ -170,7 +173,7 @@ def icp_term_from_assoc(R_curr, t_curr, vmap_curr, nmap_curr, R_prev_inv,
                         t_prev, assoc: ICPAssociation) -> GNTerm:
     """Point-to-plane GN term against an existing association
     (ICPReduction::getProducts, reduce.cu:367-415)."""
-    v = vmap_curr.reshape(-1, 3)
+    v = vmap_curr.reshape(vmap_curr.shape[:-3] + (-1, 3))
     t_prev = t_prev[..., None, :]
     v_g = v @ R_curr.mT + t_curr[..., None, :]
     s_cp = (v_g - t_prev) @ R_prev_inv.mT
@@ -227,7 +230,7 @@ def compute_rgb_residual(didx, didy, last_depth, next_depth, last_image,
     matches whose last-image 4x4 neighbourhood is valid.  A slot axis
     enters through `krk_inv` (N, 3, 3), `kt` (N, 3) and the last images
     (N, H, W)."""
-    H, W = next_image.shape
+    H, W = next_image.shape[-2:]
     if static_valid is None:
         static_valid = rgb_static_valid(next_image, next_depth, didx, didy,
                                         min_scale, next_mask, mask_id)
@@ -280,8 +283,8 @@ def rgb_step(corres: RGBCorrespondences, sigma: torch.Tensor,
     cp0 = (u0 - intr.cx) * z / fx
     cp1 = (v0 - intr.cy) * z / fy
     invz = torch.where(z != 0, 1.0 / z, 0.0)
-    gx = w * sobel_scale * didx.reshape(-1)
-    gy = w * sobel_scale * didy.reshape(-1)
+    gx = w * sobel_scale * didx.reshape(didx.shape[:-2] + (-1,))
+    gy = w * sobel_scale * didy.reshape(didy.shape[:-2] + (-1,))
     r0 = gx * fx * invz
     r1 = gy * fy * invz
     r2 = -(r0 * cp0 + r1 * cp1) * invz
@@ -300,8 +303,9 @@ def so3_step(last_image, next_image, image_basis, k_inv, krlr) -> GNTerm:
     """Rotation-only photometric alignment on the coarsest pyramid level
     (SO3Reduction, reduce.cu:999-1137): a 3x3 GN term over the rotation.
     A slot axis enters through `last_image` (N, H, W), `image_basis` and
-    `krlr` (N, 3, 3)."""
-    H, W = next_image.shape
+    `krlr` (N, 3, 3); with per-slot crops also through `next_image`
+    (N, H, W) and `k_inv` (N, 3, 3)."""
+    H, W = next_image.shape[-2:]
     lastf = last_image.to(torch.float32)
     nextf = next_image.to(torch.float32)
     x, y = _grid(H, W, next_image.device)
@@ -325,7 +329,9 @@ def so3_step(last_image, next_image, image_basis, k_inv, krlr) -> GNTerm:
     gx = ((taps[..., 0] - taps[..., 1]) * 0.5 + glx) * 0.5
     gy = ((taps[..., 2] - taps[..., 3]) * 0.5 + gly) * 0.5
 
-    point = p @ k_inv.T
+    if k_inv.dim() > 2:
+        k_inv = k_inv[..., None, :, :]
+    point = p @ k_inv.mT
     pz = point[..., 2]
     z2 = pz * pz
     k = krlr[..., None, None]             # each entry (..., 1, 1)

@@ -16,7 +16,11 @@ objects, maskfusion_tpu/engine.py:318-356).  Each slot has its own pose,
 model pyramids, SO(3) intensity, mask id and ``done`` flags, so a slot that
 has converged keeps its state while the others iterate, as the vmapped
 ``while_loop`` does; the frame pyramids are shared, broadcast across the
-slots.  A call without the slot axis is the one-slot case.
+slots.  A call without the slot axis is the one-slot case.  The windowed
+object tracker gives each slot its own frame crop instead (N, h, w, ...)
+and its own principal point: intrinsics whose ``cx``, ``cy`` are (N, 1)
+tensors, with K and its closed-form inverse built per slot on the device
+(the JAX package's traced-intrinsics branch of ``_k_matrices``).
 
 The frozen-association schedule (``assoc_period``) and its gates are those
 of the JAX package: gates freeze with the association, at level 0 only.
@@ -29,7 +33,7 @@ prev->curr increment in the previous camera frame (the reference's
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +61,10 @@ class ModelPyramids(NamedTuple):
     nmaps_g: Tuple[torch.Tensor, ...]
     depths: Tuple[torch.Tensor, ...]       # NaN-invalid predicted depth
     intensities: Tuple[torch.Tensor, ...]
+    # the model-side 4x4 validity erosion of each level, precomputed where
+    # the pyramid is built on a halo-padded crop (the windowed object
+    # tracker); None: eroded from `intensities` in the solve
+    last_valids: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 class OdometryResult(NamedTuple):
@@ -137,6 +145,32 @@ def _k_matrices(intr: CameraIntrinsics, level: int, device: torch.device):
             torch.as_tensor(K_inv, device=device))
 
 
+def _k_of(intr: CameraIntrinsics, level: int, device: torch.device):
+    """K and K^-1 of a pyramid level: cached host constants for float
+    intrinsics; for a principal point given as (N, 1) tensors (one window a
+    slot), (N, 3, 3) stacks built on the device with the pinhole inverse in
+    closed form, as the JAX package builds them for traced intrinsics
+    (maskfusion_tpu/tracking/odometry.py:148-170)."""
+    if not isinstance(intr.cx, torch.Tensor):
+        return _k_matrices(intr, level, device)
+    il = intr.level(level)
+    f32 = torch.float32
+    cx, cy = il.cx.reshape(-1), il.cy.reshape(-1)
+    # fills on the device: a tensor made from a host scalar would be a
+    # copy that waits for the device
+    fx = torch.full_like(cx, il.fx, dtype=f32)
+    fy = torch.full_like(cx, il.fy, dtype=f32)
+    z = torch.zeros_like(cx)
+    o = torch.ones_like(cx)
+    K = torch.stack([torch.stack([fx, z, cx], -1),
+                     torch.stack([z, fy, cy], -1),
+                     torch.stack([z, z, o], -1)], -2)
+    K_inv = torch.stack([torch.stack([1.0 / fx, z, -cx / fx], -1),
+                         torch.stack([z, 1.0 / fy, -cy / fy], -1),
+                         torch.stack([z, z, o], -1)], -2)
+    return K, K_inv
+
+
 def _w(cond, a, b):
     """torch.where with a per-slot `cond` ((), or (N,)) widened to the
     trailing dims of a and b."""
@@ -180,8 +214,8 @@ def get_incremental_transformation(
 ) -> OdometryResult:
     """One tracking solve (RGBDOdometry.cpp:227-497); the arguments and
     schedule are those of maskfusion_tpu.tracking.odometry, with its
-    object-model options gn_damping and rgb_finest_only (its precomputed
-    last_valids serve only the windowed object tracker, not ported yet).
+    object-model options gn_damping and rgb_finest_only, and the model
+    pyramids' precomputed last_valids (the windowed object tracker's).
 
     With a slot axis: `t_prev` (N, 3), `R_prev` (N, 3, 3), the model
     pyramids and SO(3) intensities (N, ...) and `mask_id` an (N,) tensor;
@@ -223,7 +257,7 @@ def get_incremental_transformation(
     # --- SO(3) pre-alignment on the coarsest level (.cpp:254-325) ---
     if use_so3 and so3_last_intensities is not None:
         lvl = num_levels - 1
-        K, K_inv = _k_matrices(intr, lvl, dev)
+        K, K_inv = _k_of(intr, lvl, dev)
         last_img = so3_last_intensities[lvl]
         next_img = frame.intensities[lvl]
         big = scalar(_F32_MAX / 2)
@@ -279,7 +313,7 @@ def get_incremental_transformation(
     for lvl in range(num_levels - 1, -1, -1):
         if iters[lvl] == 0:
             continue
-        Kj, K_invj = _k_matrices(intr, lvl, dev)
+        Kj, K_invj = _k_of(intr, lvl, dev)
         il = intr.level(lvl)
         min_scale = (min_grad_magnitudes[lvl] ** 2) / (sobel_scale ** 2)
         # rgb_finest_only: a small object's coarse-level photometrics are
@@ -293,8 +327,10 @@ def get_incremental_transformation(
             next_mask=frame.masks[lvl] if use_mask_rgb else None,
             mask_id=mid_img if use_mask_rgb else None,
         ) if use_rgb else None
-        last_valid = red.rgb_last_valid(
-            model.intensities[lvl]) if use_rgb else None
+        last_valid = (model.last_valids[lvl]
+                      if model.last_valids is not None
+                      else red.rgb_last_valid(model.intensities[lvl])
+                      ) if use_rgb else None
 
         def rgb_corres(result_rt_c, lvl=lvl, Kj=Kj, K_invj=K_invj,
                        min_scale=min_scale, static_valid=static_valid,

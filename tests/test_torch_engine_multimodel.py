@@ -264,11 +264,13 @@ def test_erase_error_geometry_matches_jax(spawned_pair):
 
 
 # --------------------------------------------- not ported: must raise
+# the pipelined schedules run (tests/test_torch_pipelined*.py); with them,
+# Co-Fusion and redetection still raise
 @pytest.mark.parametrize("overrides,res,match", [
-    (dict(seg_method="maskfusion", pipelined_multiobject=True), (160, 120),
-     "ROADMAP"),
-    (dict(seg_method="maskfusion", pipelined_multiobject=True), (640, 480),
-     "ROADMAP queue 1 item 9"),
+    (dict(seg_method="cofusion", pipelined_multiobject=True), (160, 120),
+     "ROADMAP queue 1 item 11"),
+    (dict(seg_method="maskfusion", pipelined_multiobject=True,
+          enable_redetection=True), (640, 480), "ROADMAP queue 1 item 12"),
     (dict(seg_method="cofusion"), (160, 120), "ROADMAP"),
     (dict(enable_redetection=True), (160, 120), "ROADMAP"),
     (dict(relocalisation=True), (160, 120), "ROADMAP"),
@@ -284,12 +286,16 @@ def test_unported_configurations_raise(overrides, res, match):
     None,
     ["-method", "maskfusion", "--pipeline", "off"],
     ["-method", "precomputed"],
-], ids=["bench_sync", "cli_maskfusion_sync", "cli_precomputed"])
+    ["-method", "maskfusion"],
+    [],
+], ids=["bench_sync", "cli_maskfusion_sync", "cli_precomputed",
+        "cli_maskfusion_prefused", "cli_defaults"])
 def test_vga_default_object_passes_construct(argv):
     """At 640x480 the default batch_object_tracking=True with the default
     320-pixel object window constructs: bench.py's two-object configuration
     in the synchronous schedule, and the CLI's multi-object methods that run
-    it.  No frame runs (no map is allocated before the first frame)."""
+    it, the default pipelined schedule among them.  No frame runs (no map
+    is allocated before the first frame)."""
     from maskfusion_tpu_torch import main as cli
 
     if argv is None:

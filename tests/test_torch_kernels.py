@@ -600,3 +600,62 @@ def test_batched_windowed_path_on_the_card(cuda_device, monkeypatch):
         "cudaStreamSynchronize", "cudaDeviceSynchronize",
         "cudaEventSynchronize")]
     assert waits == []
+
+
+@pytest.mark.cuda
+def test_prefused_frames_never_wait_on_the_card(cuda_device):
+    """The prefused schedule (the Config default) on the 160x120
+    two-object scene with the 104-pixel window and two object slots: once
+    both objects live in their windows, a frame whose previous frame's
+    results have landed issues no synchronising call -- none under
+    torch.cuda.set_sync_debug_mode("error"), and no cudaStreamSynchronize,
+    cudaDeviceSynchronize or cudaEventSynchronize in the profiler's view.
+    The three kernels launch on every such frame.  (Only a forced drain,
+    pipeline_depth frames in flight, may wait; here each frame starts with
+    the device idle.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    from maskfusion_tpu_torch.camera import CameraIntrinsics, Resolution
+    from maskfusion_tpu_torch.config import Config
+    from maskfusion_tpu_torch.engine import MaskFusion
+    from maskfusion_tpu_torch.frame import FrameData
+
+    fx, fy, cx, cy, w, h = chip_smoke.SMALL
+    eng = MaskFusion(Resolution(w, h), CameraIntrinsics(fx, fy, cx, cy),
+                     Config(global_surfel_capacity=1 << 16,
+                            object_surfel_capacity=1 << 13,
+                            seg_method="maskfusion", model_spawn_offset=0,
+                            object_window=104, object_window_margin=24,
+                            min_object_slots=2),
+                     device=cuda_device)
+    steady = 0
+    for i, (rgb, depth, lab) in enumerate(
+            chip_smoke.synthetic_two_objects(9)):
+        frame = eng.upload_frame(FrameData(rgb=rgb, depth=depth, mask=lab,
+                                           class_ids=[0, 7, 8],
+                                           timestamp=float(i)))
+        torch.cuda.synchronize()
+        if i < 5:
+            eng.process_frame(frame)
+            continue
+        assert [m.model_id for m in eng.models] == [0, 1, 2]
+        assert all(m.window is not None for m in eng.models[1:])
+        kernels.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                eng.process_frame(frame)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        waits = [e.name for e in prof.events() if e.name in (
+            "cudaStreamSynchronize", "cudaDeviceSynchronize",
+            "cudaEventSynchronize")]
+        assert waits == [], (i, waits)
+        assert kernels.bilateral_depth.launches == 1
+        assert kernels.geometric_edge_map.launches == 1
+        assert kernels.predict_l0_scan.launches >= 6, i
+        steady += 1
+    assert steady == 4
+    eng.drain_pipeline()
+    assert all(np.isfinite(m.pose_log[-1]["pose"].numpy()).all()
+               for m in eng.models)

@@ -44,3 +44,25 @@ def assert_close_nan(a, b, atol, rtol=0.0):
     assert a.shape == b.shape, (a.shape, b.shape)
     np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
     np.testing.assert_allclose(a, b, atol=atol, rtol=rtol, equal_nan=True)
+
+
+JAX_RECORD_KEYS = ("hostvec", "ids", "nonedge", "cov", "jumps", "counts")
+
+
+def jax_record_ready(P) -> bool:
+    """A JAX engine's pending pipelined record, once its device results are
+    ready (waits for them).  In place of the JAX engine's non-blocking poll,
+    it makes every frame finish each pending frame first, as the port does
+    on the CPU, where its records are always ready: the run no longer
+    depends on timing."""
+    import jax
+
+    jax.block_until_ready([P[k] for k in JAX_RECORD_KEYS
+                           if P.get(k) is not None])
+    return True
+
+
+def wait_for_jax_pending(engine) -> None:
+    """jax_record_ready for each of a JAX engine's pending records."""
+    for P in engine._pending:
+        jax_record_ready(P)

@@ -79,7 +79,8 @@ def main() -> int:
 
     frames, intr = bench.make_two_object_frames(640, 480, 8)
     eng = MaskFusion(Resolution(640, 480), CameraIntrinsics(*intr),
-                     bench.two_object_config(), device="cuda")
+                     bench.two_object_config(pipelined=False),
+                     device="cuda")
     i = 0
     while len(eng.models) < 3:
         eng.process_frame(frames[i])
