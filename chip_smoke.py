@@ -28,7 +28,8 @@ stopped; any failure raises and exits non-zero):
      120x160 synthetic maps, with a SHA-256 of the kernel's output on each
      (two builds that agree bit for bit print the same digests), timed as
      the others and beside one PyTorch call that only moves the same bytes
-     (move_floor);
+     (move_floor); then the host segmentation of the next frame on the
+     native library (mfcore) and on its numpy versions, in turns;
   6. the synchronous multi-object engine at 640x480 in bench.py's
      two-object configuration (2^22 global and 2^19 object surfels, two
      object slots; objects tracked in one solve and fused in 320x320
@@ -66,13 +67,29 @@ stopped; any failure raises and exits non-zero):
      one scan launch a frame, TUM poses within 1 mm / 0.05 deg of phase 3's
      direct run, a PLY cloud within 1% of its confident surfels; then again
      with those poses as ground truth (-p): logged poses equal to their
-     inputs within 1e-5, the scan running on every frame;
-  9. the port bench's three lines (maskfusion_tpu_torch.bench) on the
+     inputs within 1e-5, the scan running on every frame; then `--nn` in
+     the multi-object default on the log's first 12 frames with a 5-frame
+     delay queue: the full-width Mask R-CNN (seeded random weights) labels
+     at least one frame on its thread and stream, every frame is
+     processed, the queue drains, poses and the FPS line are written;
+  9. the port bench's four lines (maskfusion_tpu_torch.bench) on the
      frames rendered above: the two-object line in bench.py's pipelined
      configuration (phase 6b's) and in the synchronous one (phase 6's),
-     each with its models and windowed frames, and the static headline,
-     each the median of its timed windows.
-The last lines are the three bench lines, the card's nvidia-smi line, one
+     each with its models and windowed frames, the SLAM-plus-NN line
+     (labelling at least one frame), and the static headline, each the
+     median of its timed windows;
+ 10a. the trained rich Mask R-CNN checkpoint (f32, carried by the port's
+     converter) on the card against the port's CPU forward on 4 seeded
+     scenes (the same detections and classes, box IoU >= 0.98, mask logits
+     within 1e-3, id images equal on >= 99.5%), and its held-out quality on
+     the card against tests/test_maskrcnn_train.py's floors;
+ 10b. the full-width network (ResNet-50-FPN, 512 px, 81 classes, bf16,
+     seeded): the serving call's wall time and the card's busy time a
+     forward, launches and synchronises a forward (none), the NMS loops' share of
+     the launches, weights and peak memory, the MAC count and its bound at
+     the bf16 peak; P2..P6 within 3e-2 (relative L2) of an f32 forward of
+     the same weights, every output finite.
+The last lines are the four bench lines, the card's nvidia-smi line, one
 JSON line of kernel records, and {"ok": true, "device": {...}}.
 
 The script imports nothing of JAX or of the JAX package, and refuses to run
@@ -81,10 +98,12 @@ without a CUDA card or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -100,6 +119,7 @@ ROOT = Path(__file__).resolve().parent
 # FP32 rate outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_BF16_S = 989e12         # dense tensor-core bf16 (phase 10b's bound)
 L2_BYTES = 50 * 2 ** 20      # the H100's L2 (data sheet), where torch does
                              # not report it
 COLD_L2_FACTOR = 1.5         # a cold rotation's copies hold 1.5x the L2
@@ -746,45 +766,57 @@ def stage_times(engine, frames):
     return dev_ms, host_ms
 
 
-def profile_frames(engine, frames, wall_ms_per_frame: float):
-    """torch.profiler over a few frames: device busy time per frame (the
-    sum of the card's kernel and copy intervals), its share of the
-    unprofiled frame time, and the host's runtime calls per frame, counted
-    inside the frames' span (the closing synchronise and any call the
-    profiler makes itself stay out)."""
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+def profile_span(fn):
+    """torch.profiler over fn(): the card's busy microseconds (the sum of
+    its kernel and copy intervals), its time per kernel name, and the
+    host's runtime calls counted inside fn's own span (the closing
+    synchronise and any call the profiler makes itself stay out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    n = len(frames)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        with torch.profiler.record_function("chip_smoke.frames"):
-            for f in frames:
-                engine.process_frame(f)
+        with torch.profiler.record_function("chip_smoke.span"):
+            fn()
         torch.cuda.synchronize()
     events = prof.events()
-    # runtime calls are counted inside the frames' own span: the closing
-    # synchronise above and the profiler's own calls stay out
     span = next(e.time_range for e in events
-                if e.name == "chip_smoke.frames"
+                if e.name == "chip_smoke.span"
                 and e.device_type == torch.autograd.DeviceType.CPU)
     busy_us = 0.0
     calls: dict = {}
     kernels: dict = {}
     for e in events:
         if (e.device_type == torch.autograd.DeviceType.CUDA
-                and e.name != "chip_smoke.frames"):
+                and e.name != "chip_smoke.span"):
             # the span's own device-side range is no device work
             us = e.time_range.elapsed_us()
             busy_us += us
             kernels[e.name] = kernels.get(e.name, 0.0) + us
-        elif (e.name.startswith("cuda") and span.start <= e.time_range.start
+        elif ((e.name.startswith("cuda") or e.name.startswith("cuLaunch"))
+              and span.start <= e.time_range.start
               and e.time_range.end <= span.end):
             calls[e.name] = calls.get(e.name, 0) + 1
+    return busy_us, kernels, calls
+
+
+def profile_frames(engine, frames, wall_ms_per_frame: float):
+    """profile_span over a few frames: device busy time per frame, its
+    share of the unprofiled frame time, and the host's runtime calls per
+    frame."""
+    n = len(frames)
+
+    def run():
+        for f in frames:
+            engine.process_frame(f)
+
+    busy_us, kernels, calls = profile_span(run)
     busy_ms = busy_us / 1e3 / n
-    waits = sum(calls.get(k, 0) for k in (
-        "cudaStreamSynchronize", "cudaDeviceSynchronize",
-        "cudaEventSynchronize"))
+    waits = sum(calls.get(k, 0) for k in SYNC_CALLS)
     out = {"frames": n, "device_busy_ms_per_frame": busy_ms,
            "device_busy_share": busy_ms / wall_ms_per_frame,
            "runtime_calls_per_frame": {k: v / n for k, v in sorted(
@@ -926,6 +958,54 @@ def phase_edge_kernel(dev, kernels, MaskFusion, Config, Resolution,
         f"{floor['move_floor_ms'] * 1e3:.2f} us")
     log_build_fields("geometric_edge_map", rec)
     return rec
+
+
+def host_segmentation_times(dev, MaskFusion, Resolution, CameraIntrinsics,
+                            frame, intr, turns: int = 5):
+    """The multi-object frame's host segmentation (MfSegmentation.perform
+    from the non-edge binary: components, edge reassignment, the overlap
+    histograms, the mask rules, the depth moments) on `frame` at 640x480,
+    on the native library (mfcore) and on its numpy versions
+    (cpp.disabled()), in alternating turns; the two results must agree.
+    Returns the median ms of each."""
+    import torch
+
+    from maskfusion_tpu_torch import cpp
+    from maskfusion_tpu_torch.segmentation.mf_segmentation import ModelInfo
+
+    W, H = 640, 480
+    eng = MaskFusion(Resolution(W, H), CameraIntrinsics(*intr),
+                     vga_multiobject_config(), device=dev)
+    depth = torch.from_numpy(frame.host_depth())
+    prep = eng.preprocess(torch.from_numpy(frame.rgb).to(dev), depth.to(dev),
+                          torch.zeros((H, W), dtype=torch.uint8, device=dev))
+    seg = eng.segmenter
+    nonedge = seg.edge_binary(prep.levels[0]["vmap"].contiguous(),
+                              prep.levels[0]["nmap"].contiguous())[1]
+    nonedge = nonedge.cpu().numpy()
+    ids = np.zeros((H, W), np.uint8)
+
+    def perform():
+        t0 = time.perf_counter()
+        res = seg.perform(frame, None, None, ids, [ModelInfo(0, 0)], 1, True,
+                          nonedge=nonedge)
+        return (time.perf_counter() - t0) * 1e3, res.full_segmentation
+
+    perform()
+    times = {"native": [], "numpy": []}
+    for _ in range(turns):
+        ms, native = perform()
+        times["native"].append(ms)
+        with cpp.disabled():
+            ms, plain = perform()
+        times["numpy"].append(ms)
+        if not np.array_equal(native, plain):
+            raise AssertionError("native and numpy host segmentations differ")
+    out = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"  host segmentation of a 640x480 two-object frame: native (mfcore) "
+        f"{out['native']:.2f} ms, numpy {out['numpy']:.2f} ms (medians of "
+        f"{turns} alternating turns; results equal)")
+    return {"ms": out, "turns_ms": times}
 
 
 def phase_multiobject(dev, kernels, MaskFusion, Config, Resolution,
@@ -1429,19 +1509,353 @@ def phase_cli(kernels, frames, direct, workdir: Path):
 
 
 def phase_bench(dev, frames, mo_frames, intr):
-    """The port bench's three lines (maskfusion_tpu_torch.bench), on the
-    frames rendered above."""
+    """The port bench's four lines (maskfusion_tpu_torch.bench), on the
+    frames rendered above; the NN-in-loop line must label a frame."""
     from maskfusion_tpu_torch import bench
 
     lines = [bench.bench_two_objects(dev, mo_frames, intr),
              bench.bench_two_objects(dev, mo_frames, intr, pipelined=False),
+             bench.bench_nn_in_loop(dev, frames[:bench.NN_FRAMES],
+                                    bench.STATIC_INTRINSICS),
              bench.bench_static(dev, frames)]
+    if lines[2]["nn_labelled"] < 1:
+        raise AssertionError("the NN-in-loop line labelled no frame")
     for line in lines:
         extra = {k: line[k] for k in ("n_models", "n_models_end",
-                                      "windowed_frames") if k in line}
+                                      "windowed_frames", "nn_labelled",
+                                      "nn_px", "nn_classes", "forced_waits")
+                 if k in line}
         log(f"  {line['metric']}: {line['value']} {line['unit']} (windows "
             f"{line['reps']}) {extra}")
     return lines
+
+
+def phase_cli_nn(kernels, frames, workdir: Path):
+    """`--nn` on the card, as a user runs it: the multi-object CLI (the
+    prefused default) on a raw KLG log of `frames` (no masks) with the
+    full-width Mask R-CNN (seeded random weights) labelling them on its
+    worker thread and CUDA stream through a 5-frame delay queue.  It returns
+    0, processes every frame of the log, drains the queue at its end,
+    labels at least one frame, writes poses-0.txt and prints its FPS line;
+    the three kernels' launches are counted over the run."""
+    import contextlib
+    import io
+
+    from maskfusion_tpu_torch import main as cli
+    from maskfusion_tpu_torch.io.klg_reader import write_klg
+
+    n = len(frames)
+    log_path = workdir / "nn.klg"
+    stamped = [dataclasses.replace(f, timestamp=33333.0 * (i + 1))
+               for i, f in enumerate(frames + frames[-1:])]
+    write_klg(str(log_path), stamped, compress=False)
+    export = workdir / "nn"
+    argv = ["-l", str(log_path), "-q", "--nn", "-frameQ", "5", "-exportdir",
+            str(export), "-ep", "--global-capacity", str(1 << 22)]
+    kernels.reset_launch_counts()
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    out = text.getvalue()
+    for line in out.splitlines():
+        log("  | " + line)
+    launches = {k: getattr(kernels, k).launches for k in
+                ("bilateral_depth", "predict_l0_scan", "geometric_edge_map")}
+    processed = re.search(r"processed (\d+) frames in .* \(([0-9.]+) FPS\)",
+                          out)
+    labelled = re.search(r"Mask R-CNN labelled (\d+) frames", out)
+    log(f"  CLI --nn ({' '.join(argv[2:6])}): rc {rc}, {n} frames in "
+        f"{seconds:.2f} s, launches {launches}")
+    if rc != 0:
+        raise AssertionError(f"the --nn CLI returned {rc}")
+    if processed is None or int(processed.group(1)) != n:
+        raise AssertionError(f"the --nn CLI did not process its {n} frames")
+    if labelled is None or int(labelled.group(1)) < 1:
+        raise AssertionError("the --nn CLI labelled no frame")
+    stamps, poses = read_tum(export / "poses-0.txt")
+    if not poses or not all(np.isfinite(p).all() for p in poses):
+        raise AssertionError("the --nn CLI wrote no finite poses")
+    return {"frames": n, "seconds": seconds, "launches": launches,
+            "fps": float(processed.group(2)),
+            "labelled": int(labelled.group(1)), "poses": len(poses)}
+
+
+def _valid_rows(out):
+    return np.nonzero(out["detection_valid"])[0]
+
+
+def phase_nn_trained(dev):
+    """Phase 10a: the trained rich checkpoint (float32) carried by the
+    port's converter, the card against the port's CPU forward on 4 seeded
+    scenes (the same valid detections and classes, matched boxes' IoU >=
+    0.98, mask logits within 1e-3 on the valid rows, generate_id_image
+    equal on >= 99.5% of the pixels), then eval_rich_detection(n_scenes=6)
+    on the card held to tests/test_maskrcnn_train.py's floors."""
+    import torch
+
+    from maskfusion_tpu_torch.maskrcnn import checkpoint_io
+    from maskfusion_tpu_torch.maskrcnn import synthetic_shapes as ss
+    from maskfusion_tpu_torch.maskrcnn.inference import generate_id_image
+
+    path = (ROOT / "maskfusion_tpu" / "maskrcnn" / "checkpoints"
+            / "shapes_rich_256.npz")
+    params, meta = checkpoint_io.load_params(str(path))
+    S = 256
+    cfg = ss.rich_config(S)
+    card = ss.forward_fn(cfg, params, dev)
+    cpu = ss.forward_fn(cfg, params, "cpu")
+    rng = np.random.default_rng(20)
+    worst = {"box_iou": 1.0, "mask_err": 0.0, "id_equal": 1.0}
+    keys = ("detections", "mask_logits", "detection_classes",
+            "detection_scores", "detection_valid")
+    for i in range(4):
+        img = ss.make_rich_scene(rng, S)[0]
+        a, b = card(img), cpu(img)
+        va, vb = _valid_rows(a), _valid_rows(b)
+        if not (np.array_equal(va, vb) and np.array_equal(
+                a["detection_classes"][va], b["detection_classes"][vb])):
+            raise AssertionError(f"scene {i}: the card's detections {va} "
+                                 f"differ from the CPU's {vb}")
+        ious = [ss.box_iou_np(a["detections"][k], b["detections"][k])
+                for k in va]
+        err = float(np.abs(a["mask_logits"][va]
+                           - b["mask_logits"][vb]).max()) if len(va) else 0.0
+        ia = generate_id_image(*(a[k] for k in keys), 480, 640, 0.5)[0]
+        ib = generate_id_image(*(b[k] for k in keys), 480, 640, 0.5)[0]
+        same = float((ia == ib).mean())
+        log(f"  scene {i}: {len(va)} detections, classes "
+            f"{a['detection_classes'][va].tolist()}, min box IoU "
+            f"{min(ious, default=1.0):.5f}, mask logits max err {err:.2e}, "
+            f"id image equal on {same:.4%}")
+        worst = {"box_iou": min(worst["box_iou"], *ious, 1.0),
+                 "mask_err": max(worst["mask_err"], err),
+                 "id_equal": min(worst["id_equal"], same)}
+        if not (min(ious, default=1.0) >= 0.98 and err <= 1e-3
+                and same >= 0.995):
+            raise AssertionError(f"scene {i}: card and CPU differ {worst}")
+    t0 = time.perf_counter()
+    q = ss.eval_rich_detection(params, image_size=S, n_scenes=6, device=dev)
+    log(f"  eval_rich_detection(n_scenes=6) on the card in "
+        f"{time.perf_counter() - t0:.1f} s: {q}; the checkpoint's meta: "
+        f"det_iou {meta['det_iou']:.3f}, mask_iou {meta['mask_iou']:.3f}")
+    floors = {"recall": 0.6, "det_iou": 0.45, "cls_acc": 0.7,
+              "mask_iou": 0.45}
+    if not all(q[k] >= v for k, v in floors.items()):
+        raise AssertionError(f"the rich checkpoint on the card: {q} below "
+                             f"{floors}")
+    torch.cuda.synchronize()
+    return {"card_vs_cpu": worst, "eval": q, "meta": {
+        k: meta[k] for k in ("det_iou", "mask_iou", "recall", "cls_acc")}}
+
+
+def network_macs(model, image):
+    """Multiply-accumulates of one forward, from the shapes each conv,
+    dense and transposed-conv layer sees (forward hooks): the mask head is
+    counted on every detection slot, valid or not, as it runs."""
+    import torch
+
+    from maskfusion_tpu_torch.maskrcnn import model as mm
+
+    macs = {"backbone": 0, "rpn": 0, "box_head": 0, "mask_head": 0}
+    hooks = []
+
+    def hook(part):
+        def count(mod, inp, out):
+            w = mod.weight
+            if isinstance(mod, mm.Dense):
+                n = out.numel() * w.shape[1]
+            elif isinstance(mod, mm.ConvTranspose2x2):
+                n = inp[0].numel() * w.shape[1] * 4
+            else:
+                n = out.numel() * w[0].numel()
+            macs[part] += n
+        return count
+
+    for part in macs:
+        for mod in getattr(model, part).modules():
+            if isinstance(mod, (mm.Conv, mm.Dense, mm.ConvTranspose2x2)):
+                hooks.append(mod.register_forward_hook(hook(part)))
+    try:
+        with torch.no_grad():
+            model(image)
+    finally:
+        for h in hooks:
+            h.remove()
+    return macs
+
+
+def profile_calls(fn):
+    """profile_span over one call of fn: kernel launches, synchronises, the
+    runtime calls and the card's busy ms."""
+    busy_us, _, calls = profile_span(fn)
+    launches = sum(v for k, v in calls.items() if "Launch" in k)
+    syncs = sum(calls.get(k, 0) for k in SYNC_CALLS)
+    return launches, syncs, calls, busy_us / 1e3
+
+
+def tie_order(scores, cfg, dev, seed: int = 7):
+    """The network's tie order on ``dev`` against the CPU's, for RPN
+    ``scores`` (A,) on the CPU: the stable descending sort's first
+    pre_nms_limit and the fixed-k NMS of the RPN and of the detections,
+    (order, picks, valid) equal.  The boxes are seeded on a 1/64 grid, so
+    both devices compute every IoU exactly alike.  Returns the distinct
+    scores among the first pre_nms_limit."""
+    import torch
+
+    from maskfusion_tpu_torch.maskrcnn import model as mm
+
+    rng = np.random.default_rng(seed)
+    A = scores.shape[0]
+    corner = rng.integers(0, 52, (A, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [corner, corner + rng.integers(1, 13, (A, 2))], 1) / 64).float()
+
+    def run(device, n, k, thr):
+        top, order = torch.sort(scores.to(device), descending=True,
+                                stable=True)
+        top, order = top[:n], order[:n]
+        picks, valid = mm.nms_fixed(boxes.to(device)[order], top, k, thr)
+        return order.cpu(), picks.cpu(), valid.cpu()
+
+    for n, k, thr in ((cfg.pre_nms_limit, cfg.post_nms_proposals,
+                       cfg.rpn_nms_threshold),
+                      (cfg.post_nms_proposals, cfg.max_detections,
+                       cfg.detection_nms_threshold)):
+        for a, b, what in zip(run(dev, n, k, thr), run("cpu", n, k, thr),
+                              ("order", "picks", "valid")):
+            if not torch.equal(a, b):
+                raise AssertionError(f"tie order on the card: {what} of "
+                                     f"{k} in {n} differs from the CPU's")
+    order = torch.sort(scores, descending=True, stable=True)[1]
+    return len(torch.unique(scores[order[:cfg.pre_nms_limit]]))
+
+
+def phase_nn_full_width(dev):
+    """Phase 10b: the default MaskRCNNConfig (ResNet-50-FPN, 256 FPN
+    channels, 512 px, 81 classes, bf16), seeded: the serving call's wall
+    time (hot, median of 3 windows of 5) and the card's busy time a forward
+    (median of 3 profiles), launches
+    and synchronises per forward and the two NMS loops' share of the
+    launches, peak memory, the MAC count and its bound at the card's bf16
+    peak; P2..P6 against an f32 forward of the same weights (the bf16
+    weights widened; relative L2 <= 3e-2 each) and every output finite."""
+    import torch
+
+    from maskfusion_tpu_torch.maskrcnn import model as mm
+    from maskfusion_tpu_torch.maskrcnn.inference import MaskRCNNInference
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    net = MaskRCNNInference(mm.MaskRCNNConfig(), seed=0, device=dev)
+    init_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated() - base
+    cfg = net.cfg
+    S = cfg.image_size
+    rgb = np.random.default_rng(30).integers(0, 256, (480, 640, 3),
+                                             dtype=np.uint8)
+    img = torch.from_numpy(rgb).to(dev)
+    from maskfusion_tpu_torch.maskrcnn.resize import resize_rgb_u8
+
+    x = resize_rgb_u8(img, (S, S)).float()[None]
+
+    def forward():
+        with torch.no_grad():
+            return net.model(x)
+
+    out = forward()
+    torch.cuda.synchronize()
+    for k, v in out.items():
+        if v.is_floating_point() and not torch.isfinite(v).all():
+            raise AssertionError(f"full-width output {k} is not finite")
+    distinct = tie_order(torch.softmax(out["rpn_logits"][0].cpu(), -1)[:, 1],
+                         cfg, dev)
+    # the serving call as the worker makes it (host clock, its own stream)
+    net.detect(rgb)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            net.detect(rgb)
+        walls.append((time.perf_counter() - t0) * 1e3 / 5)
+    wall_ms = float(np.median(walls))
+    torch.cuda.reset_peak_memory_stats()
+    forward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    # launches, synchronises and the card's busy time of one forward, in
+    # three profiles (the busy time: their median)
+    profiles = [profile_calls(forward) for _ in range(3)]
+    launches, syncs, calls, _ = profiles[-1]
+    busy = [p[3] for p in profiles]
+    dev_ms = float(np.median(busy))
+    # the two NMS loops alone, at the forward's sizes
+    k = min(cfg.pre_nms_limit, mm.generate_anchors(cfg).shape[0])
+    corner = 0.8 * torch.rand(k, 2, device=dev)
+    boxes = torch.cat([corner, corner + 0.2 * torch.rand(k, 2, device=dev)],
+                      1)
+    scores = torch.rand(k, device=dev)
+    nms_rpn = profile_calls(lambda: mm.nms_fixed(
+        boxes, scores, cfg.post_nms_proposals, cfg.rpn_nms_threshold))[0]
+    nb = cfg.post_nms_proposals
+    nms_det = profile_calls(lambda: mm.nms_fixed(
+        boxes[:nb], scores[:nb], cfg.max_detections,
+        cfg.detection_nms_threshold))[0]
+    macs = network_macs(net.model, x)
+    total_macs = sum(macs.values())
+    t_ops = 2 * total_macs / PEAK_BF16_S * 1e3
+    nbytes = weights + x.numel() * 4 + sum(v.numel() * v.element_size()
+                                           for v in out.values())
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    # P2..P6 against an f32 forward of the same weights (the bf16 ones,
+    # widened): what the bf16 compute alone changes
+    net32 = MaskRCNNInference(dataclasses.replace(cfg, dtype=torch.float32),
+                              seed=0, device=dev)
+    net32.model.load_state_dict({k: v.float() for k, v in
+                                 net.model.state_dict().items()})
+    with torch.no_grad():
+        f16 = net.model.features(x)
+        f32 = net32.model.features(x)
+    rel = [float(torch.linalg.vector_norm((a.float() - b).flatten())
+                 / torch.linalg.vector_norm(b.flatten()))
+           for a, b in zip(f16, f32)]
+    del net32, f16, f32
+    rec = {"init_s": init_s, "serving_ms": wall_ms,
+           "serving_windows_ms": walls, "forward_device_busy_ms": dev_ms,
+           "forward_device_busy_profiles_ms": busy, "launches": launches,
+           "synchronises": syncs,
+           "nms_launches": {"rpn": nms_rpn, "detections": nms_det},
+           "nms_share": (nms_rpn + nms_det) / launches,
+           "weights_mb": weights / 2 ** 20, "peak_mb": peak / 2 ** 20,
+           "gmac": {k: v / 1e9 for k, v in macs.items()},
+           "gmac_total": total_macs / 1e9, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes,
+           "p2_p6_rel_l2_vs_f32": rel, "tie_order_distinct": distinct,
+           "detections_valid": int(out["detection_valid"].sum())}
+    log(f"  full width (512 px, 81 classes, bf16, seeded): init "
+        f"{init_s:.1f} s; serving call {wall_ms:.2f} ms (windows "
+        f"{[round(w, 2) for w in walls]}); the card busy "
+        f"{dev_ms:.2f} ms a forward (profiles "
+        f"{[round(b, 2) for b in busy]}); {launches} launches and {syncs} "
+        f"synchronises "
+        f"a forward, the NMS loops {nms_rpn} + {nms_det} "
+        f"({rec['nms_share']:.1%}); weights {rec['weights_mb']:.1f} MB, "
+        f"peak {rec['peak_mb']:.1f} MB; {total_macs / 1e9:.2f} GMAC "
+        f"{ {k: round(v / 1e9, 2) for k, v in macs.items()} }, bound "
+        f"{rec['bound_ms'] * 1e3:.1f} us ({rec['bound_by']}; bf16 "
+        f"{t_ops * 1e3:.1f} us, bytes {t_bytes * 1e3:.1f} us); P2..P6 "
+        f"relative L2 against f32 {[round(r, 4) for r in rel]}; tie order "
+        f"equal to the CPU's ({distinct} distinct scores in the first "
+        f"{cfg.pre_nms_limit})")
+    if max(rel) > 3e-2:
+        raise AssertionError(f"bf16 features differ from f32 by {rel}")
+    if syncs:
+        raise AssertionError(f"the forward synchronised {syncs} times "
+                             f"({calls})")
+    return rec
 
 
 def main() -> int:
@@ -1521,6 +1935,8 @@ def main() -> int:
     records.append(phase_edge_kernel(dev, kernels, MaskFusion, Config,
                                      Resolution, CameraIntrinsics,
                                      mo_frames[0], intr))
+    host_seg = host_segmentation_times(dev, MaskFusion, Resolution,
+                                       CameraIntrinsics, mo_frames[1], intr)
 
     log_phase("phase 6: the synchronous multi-object engine at 640x480, "
               "2^22 + 2 x 2^19 surfels, batched and windowed object passes")
@@ -1554,19 +1970,28 @@ def main() -> int:
         form) for form in PARITY_FORMS}
 
     log_phase(f"phase 8: the -static CLI on the card ({n_static} frames of "
-              "a raw KLG log), with and without ground-truth poses")
+              "a raw KLG log), with and without ground-truth poses, and "
+              "--nn on its first 12")
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as workdir:
         cli_run = phase_cli(kernels, frames, direct, Path(workdir))
+        cli_run["nn"] = phase_cli_nn(kernels, frames[:12], Path(workdir))
     for rec in records:
         rec["launches_by_path"].update({
             f"cli_{k}": cli_run[k]["launches"].get(rec["name"], 0)
-            for k in ("static", "ground_truth")})
+            for k in ("static", "ground_truth", "nn")})
 
     log_phase("phase 9: the port bench (python -m "
               "maskfusion_tpu_torch.bench)")
     bench_lines = phase_bench(dev, all_frames, all_mo_frames, intr)
+
+    log_phase("phase 10a: the trained rich Mask R-CNN (f32), card against "
+              "CPU, and its quality floors on the card")
+    nn_trained = phase_nn_trained(dev)
+    log_phase("phase 10b: the full-width Mask R-CNN (ResNet-50-FPN, 512 px, "
+              "bf16)")
+    nn_full = phase_nn_full_width(dev)
     torch.cuda.synchronize()
     log(f"engine: {json.dumps({k: v for k, v in run.items()})}")
     log(f"parity: {json.dumps(parity)}")
@@ -1574,6 +1999,9 @@ def main() -> int:
     log(f"pipelined: {json.dumps(pipe_run)}")
     log(f"multiobject parity: {json.dumps(mo_parity)}")
     log(f"cli: {json.dumps(cli_run)}")
+    log(f"host segmentation: {json.dumps(host_seg)}")
+    log(f"nn trained: {json.dumps(nn_trained)}")
+    log(f"nn full width: {json.dumps(nn_full)}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     for line in bench_lines:
         print(json.dumps(line), flush=True)

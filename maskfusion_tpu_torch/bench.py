@@ -3,7 +3,7 @@
     python -m maskfusion_tpu_torch.bench
 
 The counterpart of the repository's root ``bench.py`` (which drives the JAX
-package and stays as it is).  Three lines, each one JSON object in bench.py's
+package and stays as it is).  Four lines, each one JSON object in bench.py's
 format (``metric``, ``value``, ``unit``, ``vs_baseline`` against the 30 FPS
 real-time target, ``reps``), plus ``device``, the card's nvidia-smi name and
 power limit:
@@ -20,6 +20,17 @@ power limit:
   fused their objects in their windows (``windowed_frames``);
 - ``slam_fps_640x480_two_objects_sync``: the same in the synchronous
   schedule (``pipelined_multiobject=False``), with the same extras;
+- ``slam_fps_640x480_nn_in_loop``: bench.py's SLAM-plus-NN line
+  (bench.py:265-348), its configuration unchanged: the multi-object engine
+  at the ``Config`` defaults (pipelined, prefused) with a 2^22-surfel
+  global map on ``make_frames``' frames with no masks, labelled by the
+  full-width Mask R-CNN (seeded random weights, score threshold 0.999) on
+  its worker thread and CUDA stream through a 5-frame delay queue, pumped
+  without blocking; 6 warm-up frames, then the median of 3 windows of 20,
+  each ending with the queue's flush, a drain and a synchronise; with the
+  frames that left the queue labelled (``nn_labelled``), the network's
+  input size and classes (``nn_px``, ``nn_classes``) and the timed frames'
+  host stages that waited on the card (``forced_waits``);
 - ``slam_fps_640x480_static``, printed last: bench.py's headline, the
   -static frame with a 2^22-surfel map; 8 warm-up frames, then the median of
   5 windows of 20 frames (five rather than bench.py's three: one run's
@@ -57,6 +68,8 @@ STATIC_WARM, STATIC_TIMED, STATIC_WINDOWS = 8, 20, 5
 TWO_OBJECT_WARM, TWO_OBJECT_TIMED, TWO_OBJECT_WINDOWS = 14, 12, 3
 STATIC_FRAMES = STATIC_WARM + STATIC_TIMED * STATIC_WINDOWS
 TWO_OBJECT_FRAMES = TWO_OBJECT_WARM + TWO_OBJECT_TIMED * TWO_OBJECT_WINDOWS
+NN_WARM, NN_TIMED, NN_WINDOWS, NN_QUEUE = 6, 20, 3, 5
+NN_FRAMES = NN_WARM + NN_TIMED * NN_WINDOWS
 
 
 # ---------------------------------------------------------------- frames
@@ -333,6 +346,98 @@ def bench_two_objects(device="cuda", frames=None, intrinsics=None,
                     windowed_frames=engine.windowed_fuses - windowed)
 
 
+def nn_config():
+    """bench.py's SLAM-plus-NN engine configuration (bench.py:286-287)."""
+    from maskfusion_tpu_torch.config import Config
+
+    return Config(global_surfel_capacity=1 << 22, seg_method="maskfusion",
+                  pipelined_multiobject=True)
+
+
+def bench_nn_in_loop(device="cuda", frames=None, intrinsics=None) -> dict:
+    """SLAM and the asynchronous Mask R-CNN sharing the card
+    (bench.py's bench_nn_in_loop): the reference's NN lane (the worker of
+    MaskRCNN.cpp:178-208 behind the delay queue) inside the frame loop at
+    the reference's scale (512 px, 81 classes).  `frames` default to
+    make_frames(640, 480, NN_FRAMES) at bench.py's static intrinsics; their
+    masks are dropped.  The network is the full-width one with seeded
+    random weights (latency does not depend on the weights) at score
+    threshold 0.999, so the noise detections leave the SLAM side on its
+    static scene.  The queue holds 5 frames, not the production 30: the
+    run is short, and a 30-slot queue would never overflow, gating SLAM on
+    the network for every frame instead of exercising the reference's lag
+    semantics (frames leave unlabelled when the network falls more than the
+    queue's depth behind, MaskFusion.cpp:206-209)."""
+    import dataclasses
+
+    from maskfusion_tpu_torch.camera import CameraIntrinsics, Resolution
+    from maskfusion_tpu_torch.engine import MaskFusion
+    from maskfusion_tpu_torch.maskrcnn.inference import (
+        FrameQueue, MaskRCNNInference, MaskRCNNWorker)
+    from maskfusion_tpu_torch.maskrcnn.model import MaskRCNNConfig
+
+    if frames is None:
+        frames = make_frames(*VGA, NN_FRAMES)
+        intrinsics = STATIC_INTRINSICS
+    if len(frames) < NN_FRAMES:
+        raise ValueError(f"{len(frames)} frames given, {NN_FRAMES} needed")
+    frames = [dataclasses.replace(f, mask=None, class_ids=None)
+              for f in frames[:NN_FRAMES]]
+    h, w = frames[0].rgb.shape[:2]
+    engine = MaskFusion(Resolution(w, h), CameraIntrinsics(*intrinsics),
+                        nn_config(), device=device)
+    inference = MaskRCNNInference(MaskRCNNConfig(score_threshold=0.999),
+                                  device=device)
+    queue = FrameQueue(NN_QUEUE)
+    worker = MaskRCNNWorker(inference, queue)
+    labelled = 0
+
+    def consume(out):
+        nonlocal labelled
+        if out is not None:
+            labelled += out.mask is not None
+            engine.process_frame(out)
+
+    def pump(frame):
+        # non-blocking: push, then process whatever the delay queue
+        # releases (a labelled head, or the head of a full queue)
+        worker.check()
+        queue.push(frame)
+        consume(queue.pop_ready())
+
+    def drain():
+        # end of a window: the remaining frames leave unlabelled where the
+        # network has not reached them, as a full queue would release them
+        while len(queue):
+            consume(queue.pop_ready(flush=True))
+        engine.drain_pipeline()
+        _wait(engine)
+
+    fps, waits = [], 0
+    try:
+        for f in frames[:NN_WARM]:
+            pump(f)
+        drain()
+        for k in range(NN_WINDOWS):
+            window = frames[NN_WARM + k * NN_TIMED:
+                            NN_WARM + (k + 1) * NN_TIMED]
+            t0 = time.perf_counter()
+            for f in window:
+                w0 = engine.forced_waits
+                pump(f)
+                waits += engine.forced_waits - w0
+            drain()
+            fps.append(len(window) / (time.perf_counter() - t0))
+    finally:
+        worker.stop()
+    # forced_waits: host stages of the timed frames that found their
+    # frame's results not landed and waited (the windows' drains excluded)
+    return fps_line("slam_fps_640x480_nn_in_loop", fps, device_line(device),
+                    nn_labelled=labelled, nn_px=inference.cfg.image_size,
+                    nn_classes=inference.cfg.num_classes,
+                    forced_waits=waits)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("maskfusion_tpu_torch.bench: no CUDA card (torch.cuda."
@@ -341,6 +446,7 @@ def main() -> int:
         return 2
     print(json.dumps(bench_two_objects()), flush=True)
     print(json.dumps(bench_two_objects(pipelined=False)), flush=True)
+    print(json.dumps(bench_nn_in_loop()), flush=True)
     print(json.dumps(bench_static()), flush=True)
     return 0
 

@@ -18,6 +18,9 @@ predictions and the engine's host bookkeeping.
   can then run in lockstep, in the synchronous or a pipelined schedule.  An
   engine with pipelined frames still pending is refused: its state is not
   that of any one frame until ``drain_pipeline()`` has finished them.
+- `maskrcnn_state_dict`: the JAX package's Mask R-CNN parameter tree (flax
+  names, numpy arrays: a ``model.init`` or ``checkpoint_io.load_params``
+  tree) becomes the ``state_dict`` of the port's ``maskrcnn.model.MaskRCNN``.
 """
 
 from __future__ import annotations
@@ -135,3 +138,84 @@ def restore_engine(engine: MaskFusion, snap: Dict[str, Any]) -> None:
 
 __all__ = ["map_state_from_numpy", "state_to_numpy", "engine_snapshot",
            "restore_engine"]
+
+
+# ---------------------------------------------------------------- Mask R-CNN
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v, np.float32)
+    return out
+
+
+def maskrcnn_state_dict(flax_tree, cfg) -> Dict[str, torch.Tensor]:
+    """The port model's ``state_dict`` (float32 tensors; loading casts them
+    to the model's dtype) from the JAX package's parameter tree.
+
+    - flax's auto-names, in creation order: ``backbone/Conv_0`` the stem,
+      ``Conv_1..4`` the lateral 1x1 convs on C5..C2, ``Conv_5..8`` the 3x3
+      output convs on P2..P5; ``Bottleneck_k`` numbered across the stages
+      (``Conv_0..2`` the branch, ``Conv_3`` the downsample); norms
+      ``GroupNorm_i`` / ``FrozenBatchNorm_i`` likewise;
+    - conv kernels (kh, kw, in, out) -> (out, in, kh, kw); Dense kernels
+      (in, out) -> (out, in); ``fc1``'s rows are the ROI flattened in
+      (h, w, c) order, which the port's box head flattens alike;
+    - the transposed conv (kh, kw, in, out) -> (in, out, kh, kw), flipped
+      in both spatial axes: flax's (transpose_kernel=False) puts tap 1 of
+      each axis on the even outputs, F.conv_transpose2d tap 0.
+    """
+    tree = flax_tree.get("params", flax_tree)
+    norm = "FrozenBatchNorm" if cfg.norm == "frozen_bn" else "GroupNorm"
+    lateral = {f"Conv_{i + 1}": f"lateral.{i}" for i in range(4)}
+    output = {f"Conv_{i + 5}": f"output.{i}" for i in range(4)}
+    block_convs = {"Conv_0": "conv1", "Conv_1": "conv2", "Conv_2": "conv3",
+                   "Conv_3": "down"}
+    block_norms = {f"{norm}_0": "norm1", f"{norm}_1": "norm2",
+                   f"{norm}_2": "norm3", f"{norm}_3": "down_norm"}
+
+    def module(path):
+        head, rest = path[0], path[1:]
+        if head == "backbone":
+            if rest[0] == "Conv_0":
+                return "backbone.stem"
+            if rest[0] == f"{norm}_0":
+                return "backbone.stem_norm"
+            if rest[0] in lateral:
+                return "backbone." + lateral[rest[0]]
+            if rest[0] in output:
+                return "backbone." + output[rest[0]]
+            if rest[0].startswith("Bottleneck_"):
+                k = rest[0].split("_")[1]
+                sub = block_convs.get(rest[1]) or block_norms[rest[1]]
+                return f"backbone.blocks.{k}.{sub}"
+        if head == "rpn":
+            return "rpn." + rest[0][len("rpn_"):]
+        if head == "box_head":
+            if rest[0].startswith(norm):
+                return f"box_head.norm{int(rest[0].split('_')[1]) + 1}"
+            return "box_head." + rest[0]
+        if head == "mask_head":
+            if rest[0].startswith(norm):
+                return f"mask_head.norms.{rest[0].split('_')[1]}"
+            if rest[0].startswith("conv"):
+                return f"mask_head.convs.{int(rest[0][4:]) - 1}"
+            return "mask_head." + rest[0]
+        raise KeyError("/".join(path))
+
+    out = {}
+    for key, v in _flat(tree).items():
+        path = key.split("/")
+        name, leaf = module(path[:-1]), path[-1]
+        if leaf == "kernel":
+            leaf = "weight"
+            if path[-2] == "deconv":
+                v = v[::-1, ::-1].transpose(2, 3, 0, 1)
+            elif v.ndim == 4:
+                v = v.transpose(3, 2, 0, 1)
+            else:
+                v = v.T
+        out[f"{name}.{leaf}"] = torch.from_numpy(np.array(v, order="C"))
+    return out

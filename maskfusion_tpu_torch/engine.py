@@ -73,6 +73,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from maskfusion_tpu_torch import cpp as native
 from maskfusion_tpu_torch import default_device, se3
 from maskfusion_tpu_torch.camera import CameraIntrinsics, Resolution
 from maskfusion_tpu_torch.config import Config
@@ -1010,12 +1011,24 @@ class MaskFusion:
 
     def _update_windows(self, seg: np.ndarray) -> None:
         """Every object model's window from the frame's segmentation
-        (engine.py:1566-1585 of the JAX package, its numpy path; the native
-        bounding-box pass comes with mfcore)."""
-        if not self._obj_window:
+        (engine.py:1566-1585 of the JAX package): one native pass over the
+        label image (mfcore's mf_u8_bboxes) covers every model; the per-model
+        numpy scan is its plain version."""
+        if not self.models[1:] or not self._obj_window:
             return
+        lib = native.active()
+        if lib is None:
+            for model in self.models[1:]:
+                model.window = self._object_window(model, seg)
+            return
+        bb = np.empty((256, 4), np.int32)
+        lib.mf_u8_bboxes(np.ascontiguousarray(seg, np.uint8).reshape(-1),
+                         seg.shape[0], seg.shape[1], bb.reshape(-1))
         for model in self.models[1:]:
-            model.window = self._object_window(model, seg)
+            y0, x0, y1, x1 = bb[model.model_id]
+            if y1 < 0:                      # label absent: keep the window
+                continue
+            model.window = self._window_from_bbox(y0, x0, y1, x1)
 
     def _project_ids_all(self, time: float) -> torch.Tensor:
         """All models' (depth, id) projections combined into one uint8 id

@@ -14,6 +14,7 @@ Usage examples (same surface as the reference):
   python -m maskfusion_tpu_torch.main -dir /data/sequence -static -q -ep
   python -m maskfusion_tpu_torch.main -dir seq -method precomputed \\
       --pipeline off -maskdir masks
+  python -m maskfusion_tpu_torch.main -l log.klg --nn -frameQ 5 -ep
 """
 
 from __future__ import annotations
@@ -30,8 +31,6 @@ _UNPORTED = (
     ("export_viewport", "-ev", "queue 1 item 13 (viewer and gui)"),
     ("save_state", "--save-state", "queue 1 item 13 (checkpoint)"),
     ("load_state", "--load-state", "queue 1 item 13 (checkpoint)"),
-    ("embedded_nn", "--nn", "queue 1 item 10 (Mask R-CNN)"),
-    ("toml_config", "--toml", "queue 1 item 10 (Mask R-CNN)"),
 )
 
 
@@ -119,8 +118,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--object-capacity", type=int, default=1 << 20)
     p.add_argument("--max-frames", type=int, help="alias for -e")
     p.add_argument("--nn", dest="embedded_nn", action="store_true",
-                   help="run the embedded Mask R-CNN asynchronously for "
-                        "frames without precomputed masks")
+                   help="run the embedded Mask R-CNN (full-width "
+                        "ResNet-50-FPN, seeded random weights) on its own "
+                        "thread and CUDA stream for frames without "
+                        "precomputed masks, through a -frameQ delay queue")
     p.add_argument("--toml", dest="toml_config",
                    help="config.toml with class_names/filter_classes/"
                         "score_threshold/trackable_classes")
@@ -261,6 +262,29 @@ def main(argv=None, device=None):
     reader = make_reader(args, res)
     gt = GroundTruthOdometry(args.trajectory) if args.trajectory else None
 
+    # toml class config (MainController.cpp:269-287)
+    if args.toml_config:
+        from maskfusion_tpu_torch.maskrcnn.inference import load_toml_config
+
+        tc = load_toml_config(args.toml_config)
+        cfg.score_threshold = tc["score_threshold"]
+        cfg.filter_classes = tc["filter_classes"] or None
+        cfg.trackable_classes = tc["trackable_classes"] or None
+
+    # async Mask R-CNN worker + frame delay-queue (MaskRCNN.cpp:178-208,
+    # MaskFusion.cpp:206-209) for frames without precomputed masks
+    nn_queue = nn_worker = None
+    if args.embedded_nn and not reader.has_masks():
+        from maskfusion_tpu_torch.maskrcnn.inference import (
+            FrameQueue, MaskRCNNInference, MaskRCNNWorker)
+        from maskfusion_tpu_torch.maskrcnn.model import MaskRCNNConfig
+
+        inference = MaskRCNNInference(
+            MaskRCNNConfig(score_threshold=cfg.score_threshold),
+            filter_classes=cfg.filter_classes, device=device)
+        nn_queue = FrameQueue(cfg.frame_queue_size)
+        nn_worker = MaskRCNNWorker(inference, nn_queue)
+
     if args.start_frame:
         reader.fast_forward(args.start_frame)
 
@@ -296,6 +320,16 @@ def main(argv=None, device=None):
             # compute (host segmentation paths need numpy frames, so the
             # overlap is static-mode only)
             pending = engine.upload_frame(pending)
+        if nn_queue is not None:
+            # delay-queue semantics: consume frames only once labelled (or
+            # the queue overflows).  Non-blocking: SLAM does not gate on the
+            # NN lane; frames exit unlabelled when the worker falls more
+            # than the queue's depth behind (MaskFusion.cpp:206-209)
+            nn_worker.check()
+            nn_queue.push(frame)
+            frame = nn_queue.pop_ready()
+            if frame is None:
+                continue
         if cfg.end_frame is not None and frame.index >= cfg.end_frame:
             break
         gt_pose = gt.get_pose(frame.timestamp) if gt else None
@@ -321,6 +355,18 @@ def main(argv=None, device=None):
             for _ in range(skip):
                 if reader.has_more():
                     reader.get_next()
+
+    if nn_queue is not None:
+        # drain the queue at the end of the log: flush-pop, so an unlabelled
+        # head (the worker labels newest-first) cannot starve the drain
+        while len(nn_queue):
+            frame = nn_queue.pop_ready(flush=True)
+            if frame is not None:
+                gt_pose = gt.get_pose(frame.timestamp) if gt else None
+                engine.process_frame(frame, gt_pose=gt_pose)
+                n += 1
+        nn_worker.stop()
+        print(f"Mask R-CNN labelled {nn_worker.labelled} frames")
 
     # the clock stops once the device has run every queued frame.  As in
     # the JAX CLI, the pipelined schedules' pending host stages are not

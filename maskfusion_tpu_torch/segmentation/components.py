@@ -1,10 +1,10 @@
 """Connected components + stats and the edge-pixel reassignment pass.
 
-Port of the numpy/scipy path of ``maskfusion_tpu/segmentation/components.py``
-(the reference also runs this on the CPU: cv::connectedComponentsWithStats
-at MfSegmentation.cpp:239 and the edge-reassignment loop at :243-291).  The
-JAX package prefers its native library (cpp/libmfcore) where it is built;
-the port has no native copy yet and always takes this path.
+Port of ``maskfusion_tpu/segmentation/components.py`` (the reference also
+runs this on the CPU: cv::connectedComponentsWithStats at
+MfSegmentation.cpp:239 and the edge-reassignment loop at :243-291).  Both
+take the native library (``maskfusion_tpu_torch.cpp``, mfcore) unless it is
+``disabled()``; the numpy / scipy code is their plain version.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import numpy as np
 from scipy import ndimage
+
+from maskfusion_tpu_torch import cpp as native
 
 
 class Components(NamedTuple):
@@ -28,6 +30,22 @@ _FOUR_CONN = np.array([[0, 1, 0], [1, 1, 1], [0, 1, 0]], dtype=bool)
 def connected_components(binary: np.ndarray) -> Components:
     """4-connected components with stats (cv::connectedComponentsWithStats
     equivalent)."""
+    lib = native.active()
+    if lib is not None:
+        h, w = binary.shape
+        b = np.ascontiguousarray(binary.astype(np.uint8))
+        labels = np.empty((h, w), np.int32)
+        # retry ladder: fragmented scenes (hole-ridden depth) can exceed
+        # 16k components; the worst case is a checkerboard at h*w/4 + bg
+        for max_comp in (16384, h * w // 4 + 2):
+            sizes = np.empty(max_comp, np.int32)
+            bboxes = np.empty((max_comp, 4), np.int32)
+            n = lib.mf_connected_components(
+                b, h, w, labels.reshape(-1), sizes, bboxes.reshape(-1),
+                max_comp)
+            if n >= 0:
+                return Components(labels=labels, sizes=sizes[:n].copy(),
+                                  bboxes=bboxes[:n].copy(), count=int(n))
     labels, n = ndimage.label(binary, structure=_FOUR_CONN)
     labels = labels.astype(np.int32)
     sizes = np.bincount(labels.ravel(), minlength=n + 1)
@@ -62,6 +80,15 @@ def reassign_edge_pixels(comp: Components, depth: np.ndarray,
     pixel labelled 0 (edge) or belonging to a tiny component adopts the first
     8-neighbour (fixed priority order) whose component is big enough and
     whose depth is within `depth_delta`."""
+    lib = native.active()
+    if lib is not None:
+        labels = np.ascontiguousarray(comp.labels, np.int32).copy()
+        sizes = np.ascontiguousarray(comp.sizes, np.int32)
+        d = np.ascontiguousarray(depth, np.float32)
+        lib.mf_reassign_edges(labels.reshape(-1), d, sizes,
+                              labels.shape[0], labels.shape[1],
+                              iterations, depth_delta, small_threshold)
+        return labels
     labels = comp.labels.copy()
     sizes = comp.sizes
     H, W = labels.shape

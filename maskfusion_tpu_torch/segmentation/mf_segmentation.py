@@ -10,8 +10,9 @@ Split of labour (the reference's GPU/CPU split):
                                                                (ops/seg_ops)
   host (numpy):   connected components, edge reassignment, overlap
                   bookkeeping, mask->model assignment          (this file)
-The host rules are the JAX module's bincount paths, the ones it runs when
-its native library is absent.
+The host histograms take the native library (``maskfusion_tpu_torch.cpp``,
+mfcore) where the JAX module takes its own; inside ``cpp.disabled()`` they
+take the JAX module's bincount paths, their plain version.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from maskfusion_tpu_torch import cpp as native
 from maskfusion_tpu_torch.config import Config
 from maskfusion_tpu_torch.frame import FrameData
 from maskfusion_tpu_torch.ops import seg_ops
@@ -125,21 +127,33 @@ class MfSegmentation:
             result.model_data.append(ModelData(m.model_id,
                                                class_id=m.class_id))
 
-        # component-model overlap (:306-308) as flat bincounts over the
-        # label image
-        lab_flat = np.ascontiguousarray(labels).ravel()
-        proj_flat = np.ascontiguousarray(projected_ids).ravel()
-        mask_flat = np.ascontiguousarray(mask).ravel()
+        # component-model overlap (:306-308): one native pass fills both
+        # per-component histograms; the plain version is flat bincounts
+        # over the label image
+        lib = native.active()
+        lab_flat = np.ascontiguousarray(labels, np.int32).ravel()
+        proj_flat = np.ascontiguousarray(projected_ids, np.uint8).ravel()
+        mask_flat = np.ascontiguousarray(mask, np.uint8).ravel()
         nm = max(n_models, 1)
-        comp_model = np.bincount(
-            lab_flat * np.int32(nm) + id_to_index[proj_flat],
-            minlength=n_comp * nm).reshape(n_comp, nm)
         overlap = None
-        if n_masks > 1:
-            overlap = np.bincount(
-                lab_flat * np.int32(n_masks)
-                + mask_flat.clip(0, n_masks - 1).astype(np.int32),
-                minlength=n_comp * n_masks).reshape(n_comp, n_masks)
+        if lib is not None:
+            comp_model = np.zeros((n_comp, nm), np.int32)
+            if n_masks > 1:
+                overlap = np.zeros((n_comp, n_masks), np.int32)
+            lib.mf_label_stats(
+                lab_flat, proj_flat, id_to_index, mask_flat,
+                lab_flat.size, nm, n_masks, comp_model.reshape(-1),
+                (overlap if overlap is not None
+                 else np.zeros(1, np.int32)).reshape(-1))
+        else:
+            comp_model = np.bincount(
+                lab_flat * np.int32(nm) + id_to_index[proj_flat],
+                minlength=n_comp * nm).reshape(n_comp, nm)
+            if n_masks > 1:
+                overlap = np.bincount(
+                    lab_flat * np.int32(n_masks)
+                    + mask_flat.clip(0, n_masks - 1).astype(np.int32),
+                    minlength=n_comp * n_masks).reshape(n_comp, n_masks)
         csizes = comp_model.sum(1)
 
         # ---- component <-> mask overlap, 0.65 rule (:310-344) ----
@@ -187,9 +201,15 @@ class MfSegmentation:
             # overlap of segmentation labels with projected model ids;
             # ids of non-live models map to row 0, which the loop below
             # never reads (j starts at 1)
-            model_mask_overlap = np.bincount(
-                id_to_index[proj_flat] * np.int32(256) + seg.ravel(),
-                minlength=n_models * 256).reshape(n_models, 256)
+            if lib is not None:
+                model_mask_overlap = np.zeros((n_models, 256), np.int32)
+                lib.mf_model_seg_overlap(
+                    np.ascontiguousarray(seg).ravel(), proj_flat,
+                    id_to_index, seg.size, model_mask_overlap.reshape(-1))
+            else:
+                model_mask_overlap = np.bincount(
+                    id_to_index[proj_flat] * np.int32(256) + seg.ravel(),
+                    minlength=n_models * 256).reshape(n_models, 256)
 
             min_new = cfg.seg_min_new_rel * total
             max_new = cfg.seg_max_new_rel * total
@@ -244,12 +264,21 @@ class MfSegmentation:
 
         # per-model depth statistics (SegmentationResult::ModelData) as
         # label-bincount moments
-        dvalid = depth > 0
-        seg_v = seg[dvalid].astype(np.int64)
-        d_v = depth[dvalid].astype(np.float64)
-        cnt = np.bincount(seg_v, minlength=256)
-        s1 = np.bincount(seg_v, weights=d_v, minlength=256)
-        s2 = np.bincount(seg_v, weights=d_v * d_v, minlength=256)
+        if lib is not None:
+            cnt = np.zeros(256, np.int64)
+            s1 = np.zeros(256, np.float64)
+            s2 = np.zeros(256, np.float64)
+            lib.mf_depth_moments(
+                np.ascontiguousarray(seg).ravel(),
+                np.ascontiguousarray(depth, np.float32).ravel(), seg.size,
+                cnt, s1, s2)
+        else:
+            dvalid = depth > 0
+            seg_v = seg[dvalid].astype(np.int64)
+            d_v = depth[dvalid].astype(np.float64)
+            cnt = np.bincount(seg_v, minlength=256)
+            s1 = np.bincount(seg_v, weights=d_v, minlength=256)
+            s2 = np.bincount(seg_v, weights=d_v * d_v, minlength=256)
         for md in result.model_data:
             n_px = int(cnt[md.model_id])
             if n_px:

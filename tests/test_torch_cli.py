@@ -5,6 +5,7 @@ The CLI scenarios are tests/test_cli.py's, run on both CLIs over one
 tests/test_io.write_dataset directory (one JAX run per scenario, shared by
 the module)."""
 
+import dataclasses
 import re
 import sys
 
@@ -115,9 +116,7 @@ def test_cli_unported_engine_options_raise(static_data):
     (["-ev"], "item 13 (viewer and gui)"),
     (["--save-state", "s.npz"], "item 13 (checkpoint)"),
     (["--load-state", "s.npz"], "item 13 (checkpoint)"),
-    (["--nn"], "item 10"),
-    (["--toml", "c.toml"], "item 10"),
-], ids=["viewer", "viewport", "save_state", "load_state", "nn", "toml"])
+], ids=["viewer", "viewport", "save_state", "load_state"])
 def test_cli_unported_flags_raise(flag, item):
     with pytest.raises(NotImplementedError,
                        match=re.escape(f"ROADMAP queue 1 {item}")):
@@ -235,6 +234,100 @@ def test_cli_klg_without_opencv(tmp_path, monkeypatch):
     assert np.isfinite(load_ply(str(out / "cloud-0.ply"))["pos"]).all()
 
 
+# ------------------------------------------------- --nn and --toml
+NN_ARGS = ["-exportdir", None, "-ep", "-nso", "-offset", "0",
+           "-segMinNew", "0.005", "--global-capacity", str(1 << 15),
+           "--object-capacity", str(1 << 12)]
+
+
+@pytest.fixture()
+def micro_nn(monkeypatch, tmp_path):
+    """A 64x64 KLG log of the trained shapes scene (tests/test_engine_nn.py's,
+    no masks; one frame more than the reader returns), the default preset
+    set to its size, and the CLI's network swapped for the trained micro
+    network on the CPU: the CLI builds its full-width MaskRCNNConfig, whose
+    score threshold and class filter the swap keeps and records."""
+    from maskfusion_tpu_torch.maskrcnn import checkpoint_io
+    from maskfusion_tpu_torch.maskrcnn import inference
+    from maskfusion_tpu_torch.maskrcnn.synthetic_shapes import micro_config
+    from tests.test_torch_maskrcnn_inference import INTR, MICRO, S, _scene
+
+    rgb, depth, _ = _scene()
+    frames = [FrameData(rgb=rgb, depth=np.round(depth * 1000).astype(
+        np.uint16), timestamp=1000.0 * (i + 1)) for i in range(7)]
+    log = tmp_path / "nn.klg"
+    write_klg(str(log), frames, compress=False)
+    monkeypatch.setitem(camera.PRESETS, "default",
+                        (Resolution(S, S), camera.CameraIntrinsics(*INTR)))
+    params, _ = checkpoint_io.load_params(MICRO)
+    made = []
+    real = inference.MaskRCNNInference
+
+    def micro(cfg, filter_classes=None, device=None, **_):
+        made.append(dict(score_threshold=cfg.score_threshold,
+                         filter_classes=filter_classes, device=device,
+                         image_size=cfg.image_size))
+        small = dataclasses.replace(micro_config(S),
+                                    score_threshold=cfg.score_threshold)
+        return real(small, params=params, filter_classes=filter_classes,
+                    device="cpu")
+
+    monkeypatch.setattr(inference, "MaskRCNNInference", micro)
+    return log, len(frames) - 1, made
+
+
+def test_cli_nn_runs_the_network(micro_nn, tmp_path, capsys):
+    """`-l log.klg --nn -frameQ 3` in the multi-object default (prefused):
+    the worker labels frames through the delay queue, the flush drains it
+    at the end of the log, every frame is processed, the object spawns
+    (poses-1.txt) and the FPS line is printed.  The CLI asks for the
+    full-width network (512 px) with the Config's score threshold."""
+    log, n, made = micro_nn
+    out = tmp_path / "out"
+    args = list(NN_ARGS)
+    args[1] = str(out)
+    assert tmain(["-l", str(log), "--nn", "-frameQ", "3", *args],
+                 device="cpu") == 0
+    text = capsys.readouterr().out
+    assert f"processed {n} frames" in text
+    labelled = int(re.search(r"Mask R-CNN labelled (\d+) frames",
+                             text).group(1))
+    assert 1 <= labelled <= n
+    assert made == [dict(score_threshold=0.55, filter_classes=None,
+                         device="cpu", image_size=512)]
+    assert (out / "poses-0.txt").exists() and (out / "poses-1.txt").exists()
+
+
+def test_cli_toml_reaches_the_config(micro_nn, tmp_path, monkeypatch):
+    """`--toml config.toml --nn`: score_threshold, filter_classes and
+    trackable_classes reach the engine's Config, and the first two the
+    network."""
+    from maskfusion_tpu_torch import engine
+
+    log, n, made = micro_nn
+    seen = []
+
+    class Recording(engine.MaskFusion):
+        def __init__(self, res, intr, cfg, **kw):
+            seen.append(cfg)
+            super().__init__(res, intr, cfg, **kw)
+
+    monkeypatch.setattr(engine, "MaskFusion", Recording)
+    toml = tmp_path / "config.toml"
+    toml.write_text("[MaskRCNN]\nscore_threshold = 0.3\n"
+                    "filter_classes = [1, 2]\n"
+                    "[ModelSpawning]\ntrackable_classes = [2]\n")
+    args = list(NN_ARGS)
+    args[1] = str(tmp_path / "out")
+    assert tmain(["-l", str(log), "--nn", "--toml", str(toml), *args],
+                 device="cpu") == 0
+    cfg, = seen
+    assert (cfg.score_threshold, cfg.filter_classes,
+            cfg.trackable_classes) == (0.3, [1, 2], [2])
+    assert made == [dict(score_threshold=0.3, filter_classes=[1, 2],
+                         device="cpu", image_size=512)]
+
+
 # --------------------------------------------------------- ground truth
 GT_CFG = dict(global_surfel_capacity=1 << 16, use_so3=False,
               static_mode=True)
@@ -286,14 +379,12 @@ def test_ground_truth_in_multiobject_mode():
     the small-object solve amplifies the JAX fuse's prefix-sum rounding,
     ROADMAP fault 2.)"""
     from maskfusion_tpu_torch.convert import engine_snapshot, restore_engine
-    from tests.test_torch_engine_multimodel import (SLICE, _two_object_frames,
-                                                    jnative)
+    from tests.test_torch_engine_multimodel import SLICE, _two_object_frames
+    from tests.torch_helpers import numpy_paths
 
     cfg = dict(SLICE, object_warm_start=True)
     frames = _two_object_frames(6, cam_step=0.004)
-    saved = jnative._lib, jnative._tried
-    jnative._lib, jnative._tried = None, True     # the JAX numpy path
-    try:
+    with numpy_paths():
         jeng = JMaskFusion(JResolution(syn.W, syn.H), syn.DEFAULT_INTR,
                            JConfig(**cfg))
         for i, (rgb, depth, lab, cam) in enumerate(frames):
@@ -324,8 +415,6 @@ def test_ground_truth_in_multiobject_mode():
                 assert abs(mt.surfel_count - mj.surfel_count) \
                     <= 0.01 * mj.surfel_count, \
                     (i, mt.model_id, mt.surfel_count, mj.surfel_count)
-    finally:
-        jnative._lib, jnative._tried = saved
     assert [m.model_id for m in teng.models] == [0, 1, 2]
     assert set(teng.stopwatch.summary()) >= {"segmentation", "odom", "fuse"}
 

@@ -22,7 +22,7 @@ from maskfusion_tpu_torch.convert import engine_snapshot, restore_engine
 from maskfusion_tpu_torch.engine import MaskFusion
 from maskfusion_tpu_torch.frame import FrameData
 from tests import synthetic as syn
-from tests.torch_helpers import CPU, tintr
+from tests.torch_helpers import CPU, numpy_paths, tintr
 
 BASE = dict(global_surfel_capacity=1 << 16, object_surfel_capacity=1 << 13,
             seg_method="precomputed", use_so3=False, open_loop=True)
@@ -330,9 +330,7 @@ def test_lockstep_with_jax_engine():
     carry.  (With the camera also moving, or over more frames, the object
     poses of the two engines drift apart by several mm: ROADMAP, faults.)"""
     frames = _two_object_frames(7)
-    saved = jnative._lib, jnative._tried
-    jnative._lib, jnative._tried = None, True     # the JAX numpy path
-    try:
+    with numpy_paths():
         jeng = JMaskFusion(JResolution(syn.W, syn.H), syn.DEFAULT_INTR,
                            JConfig(**SLICE))
 
@@ -378,8 +376,6 @@ def test_lockstep_with_jax_engine():
         assert np.linalg.norm(pt[0][:3, 3]) < 5e-3
         for k, true in ((1, [0.024, 0.0, 0.0]), (2, [0.0, -0.024, 0.0])):
             assert np.linalg.norm(pt[k][:3, 3] - true) < 0.025, (k, pt[k])
-    finally:
-        jnative._lib, jnative._tried = saved
 
 
 def test_segment_sums_are_exact_where_the_jax_prefix_sums_drift():

@@ -1,6 +1,6 @@
 """The port stands alone: importing it (or chip_smoke.py) loads neither jax
-nor the JAX package, its -l path needs no OpenCV, and chip_smoke.py refuses
-to run without a card."""
+nor the JAX package, its -l path and its Mask R-CNN serving path need no
+OpenCV, and chip_smoke.py refuses to run without a card."""
 
 import json
 import os
@@ -44,6 +44,13 @@ import maskfusion_tpu_torch.io.ground_truth
 import maskfusion_tpu_torch.io.export
 import maskfusion_tpu_torch.utils.stopwatch
 import maskfusion_tpu_torch.utils.diag_export
+import maskfusion_tpu_torch.cpp
+import maskfusion_tpu_torch.maskrcnn.model
+import maskfusion_tpu_torch.maskrcnn.checkpoint_io
+import maskfusion_tpu_torch.maskrcnn.resize
+import maskfusion_tpu_torch.maskrcnn.inference
+import maskfusion_tpu_torch.maskrcnn.synthetic_shapes
+import maskfusion_tpu_torch.maskrcnn.offline_runner
 """
 
 # the -l path needs no OpenCV (the card's machine has none): with cv2
@@ -63,6 +70,13 @@ write_klg(path, [FrameData(rgb=rgb, depth=depth, timestamp=5.0)] * 2,
           compress=False)
 f = KlgLogReader(path, 16, 12).get_next()
 assert (f.rgb == rgb).all() and (f.depth == depth).all()
+# the Mask R-CNN serving path needs no OpenCV either
+import torch
+from maskfusion_tpu_torch.maskrcnn import inference, synthetic_shapes
+net = inference.MaskRCNNInference(synthetic_shapes.micro_config(64),
+                                  device="cpu")
+net.execute(f)
+assert f.mask.shape == (12, 16) and f.class_ids[0] == 0
 """
 
 

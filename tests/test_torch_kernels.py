@@ -659,3 +659,91 @@ def test_prefused_frames_never_wait_on_the_card(cuda_device):
     eng.drain_pipeline()
     assert all(np.isfinite(m.pose_log[-1]["pose"].numpy()).all()
                for m in eng.models)
+
+
+@pytest.mark.cuda
+def test_maskrcnn_serves_on_its_own_stream(cuda_device):
+    """The trained micro Mask R-CNN on the card: the forward issues no
+    synchronise (sync debug mode 'error'), runs on the inference's own
+    stream, not the default one, and detect() gives the CPU's detections
+    (valid slots and classes equal, boxes to 1e-4, mask logits to 1e-3)."""
+    from maskfusion_tpu_torch.maskrcnn import checkpoint_io
+    from maskfusion_tpu_torch.maskrcnn import synthetic_shapes as ss
+    from maskfusion_tpu_torch.maskrcnn.inference import MaskRCNNInference
+
+    params, _ = checkpoint_io.load_params(
+        "maskfusion_tpu/maskrcnn/checkpoints/shapes_micro_64.npz")
+    cfg = ss.micro_config(64)
+    card = MaskRCNNInference(cfg, params=params, device=cuda_device)
+    cpu = MaskRCNNInference(cfg, params=params, device="cpu")
+    assert card.stream is not None
+    assert card.stream != torch.cuda.default_stream(cuda_device)
+    img = ss.make_shapes_scene(np.random.default_rng(0), 64)[0]
+    rgb = np.clip(img, 0, 255).astype(np.uint8)
+    card.detect(rgb)                            # warm: buffers, kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = card.forward(rgb)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(v.is_cuda for v in out.values())
+    a, b = card.detect(rgb), cpu.detect(rgb)
+    np.testing.assert_array_equal(a[4], b[4])
+    np.testing.assert_array_equal(a[2][a[4]], b[2][b[4]])
+    np.testing.assert_allclose(a[0][a[4]], b[0][b[4]], atol=1e-4)
+    np.testing.assert_allclose(a[1][a[4]], b[1][b[4]], atol=1e-3)
+    assert a[4].any()
+
+
+@pytest.mark.cuda
+def test_maskrcnn_first_detect_waits_for_its_weights(cuda_device,
+                                                     monkeypatch):
+    """detect() straight after construction gives what a synchronised
+    inference gives, while the weights' channels-last copies wait on the
+    caller's stream behind a queued sleep: the inference's own stream waits
+    for them before its first forward."""
+    from maskfusion_tpu_torch.maskrcnn import checkpoint_io
+    from maskfusion_tpu_torch.maskrcnn import model as mm
+    from maskfusion_tpu_torch.maskrcnn import synthetic_shapes as ss
+    from maskfusion_tpu_torch.maskrcnn.inference import MaskRCNNInference
+
+    params, _ = checkpoint_io.load_params(
+        "maskfusion_tpu/maskrcnn/checkpoints/shapes_micro_64.npz")
+    cfg = ss.micro_config(64)
+    img = ss.make_shapes_scene(np.random.default_rng(0), 64)[0]
+    rgb = np.clip(img, 0, 255).astype(np.uint8)
+    settled = MaskRCNNInference(cfg, params=params, device=cuda_device)
+    torch.cuda.synchronize()
+    want = settled.detect(rgb)
+    to = mm.MaskRCNN.to
+
+    def late_to(self, *args, **kwargs):
+        if "memory_format" in kwargs:
+            torch.cuda._sleep(int(1e9))     # about half a second queued
+        return to(self, *args, **kwargs)
+
+    monkeypatch.setattr(mm.MaskRCNN, "to", late_to)
+    got = MaskRCNNInference(cfg, params=params,
+                            device=cuda_device).detect(rgb)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert want[4].any()
+
+
+@pytest.mark.cuda
+def test_nms_tie_order_on_card(cuda_device):
+    """The full-width network's tie order on the card is the CPU's
+    (chip_smoke.tie_order): RPN scores from bf16 logits over its 65,472
+    anchors, many of them equal; the stable sort's first pre_nms_limit and
+    the fixed-k NMS of the RPN and of the detections, indices equal."""
+    from maskfusion_tpu_torch.maskrcnn import model as mm
+
+    cfg = mm.MaskRCNNConfig()
+    A = mm.generate_anchors(cfg).shape[0]
+    logits = torch.from_numpy(np.random.default_rng(7).normal(
+        0, 1, (A, 2)).astype(np.float32)).bfloat16().float()
+    scores = torch.softmax(logits, -1)[:, 1]
+    assert chip_smoke.tie_order(scores, cfg, cuda_device) < \
+        cfg.pre_nms_limit // 2                               # ties

@@ -38,6 +38,7 @@ from maskfusion_tpu.engine import Model as JModel
 from maskfusion_tpu.engine import _slot_class as j_slot_class
 from maskfusion_tpu.frame import FrameData as JFrameData
 from maskfusion_tpu.mapping import surfel_map as jsm
+from maskfusion_tpu_torch import cpp as tnative
 from maskfusion_tpu_torch.camera import Resolution
 from maskfusion_tpu_torch.config import Config
 from maskfusion_tpu_torch.convert import engine_snapshot, restore_engine
@@ -113,9 +114,11 @@ def carry_state() -> dict:
 
 @pytest.fixture(scope="module")
 def carried():
-    """carry_state(), shared by the module's tests."""
-    state = carry_state()
-    yield state
+    """carry_state(), shared by the module's tests, with the port on its
+    numpy path as the JAX engine."""
+    with tnative.disabled():
+        state = carry_state()
+        yield state
     jnative._lib, jnative._tried = state["native"]
 
 
@@ -352,8 +355,8 @@ def _window_cases(carried):
 
 @pytest.mark.parametrize("native", [False, True], ids=["numpy", "native"])
 def test_windows_match_jax(carried, native):
-    """`_update_windows` of the port (its numpy path) against the JAX
-    engine's, frame by frame on the same label images, with the JAX native
+    """`_update_windows` of the port against the JAX engine's, frame by
+    frame on the same label images, with both packages' native
     bounding-box pass off and on: the same windows, origins multiples of 8
     inside the frame."""
     jeng = carried["jeng"]
@@ -369,7 +372,8 @@ def test_windows_match_jax(carried, native):
     try:
         for seg in _window_cases(carried):
             jeng._update_windows(seg)
-            teng._update_windows(seg)
+            with tnative.disabled(not native):
+                teng._update_windows(seg)
             got = [m.window for m in teng.models[1:]]
             assert got == [m.window for m in jmodels[1:]]
             seen.append(got)

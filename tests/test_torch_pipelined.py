@@ -32,6 +32,7 @@ from maskfusion_tpu.camera import Resolution as JResolution
 from maskfusion_tpu.config import Config as JConfig
 from maskfusion_tpu.engine import MaskFusion as JMaskFusion
 from maskfusion_tpu.frame import FrameData as JFrameData
+from maskfusion_tpu_torch import cpp as tnative
 from maskfusion_tpu_torch.camera import Resolution
 from maskfusion_tpu_torch.config import Config
 from maskfusion_tpu_torch.convert import engine_snapshot, restore_engine
@@ -105,10 +106,12 @@ def carry_state() -> dict:
 @pytest.fixture(scope="module")
 def carried():
     """carry_state(), with both device stages run on frame 3 (the JAX
-    engine's once), shared by the module's tests."""
-    state = carry_state()
-    state.update(device_stages(state))
-    yield state
+    engine's once), shared by the module's tests, with the port on its
+    numpy path as the JAX engine."""
+    with tnative.disabled():
+        state = carry_state()
+        state.update(device_stages(state))
+        yield state
     jnative._lib, jnative._tried = state["native"]
 
 

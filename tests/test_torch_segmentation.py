@@ -2,17 +2,15 @@
 the cases of tests/test_mfseg_rules.py, MfSegmentation.perform on rendered
 object frames, and PreSegmentation, each against the JAX package.
 
-The port implements the JAX module's numpy path (its bincount rules and
-scipy components); the JAX module prefers its native library where it is
-built, whose edge reassignment differs from the numpy path on up to 2% of
-pixels (tests/test_components_native.py).  The comparisons force the JAX
-module's numpy path and then ask for the same segmentation exactly."""
+Both packages take their native library (mfcore) by default; the
+comparisons on rendered frames force both onto their numpy paths (bincount
+rules, scipy components) and ask for the same segmentation exactly
+(tests/test_torch_mfcore.py holds native against native)."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import maskfusion_tpu.cpp as jnative
 from maskfusion_tpu.camera import Resolution as JResolution
 from maskfusion_tpu.config import Config as JConfig
 from maskfusion_tpu.frame import FrameData as JFrameData
@@ -31,19 +29,15 @@ from maskfusion_tpu_torch.segmentation.pre_segmentation import (
     PreSegmentation)
 from tests import synthetic as syn
 from tests import test_mfseg_rules as rules
-from tests.torch_helpers import t, tintr
+from tests.torch_helpers import numpy_paths, t, tintr
 
 
 @pytest.fixture()
 def jax_numpy_path():
-    """The JAX module's numpy path (its native library unloaded), restored
-    afterwards (the pattern of tests/test_components_native.py)."""
-    saved = jnative._lib, jnative._tried
-    jnative._lib, jnative._tried = None, True
-    try:
+    """Both packages' numpy paths (the JAX module's native library unloaded,
+    the port's disabled), restored afterwards."""
+    with numpy_paths():
         yield
-    finally:
-        jnative._lib, jnative._tried = saved
 
 
 # ---------------------------------------------------------------- rules

@@ -8,9 +8,12 @@ PyTorch versions.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
+from maskfusion_tpu_torch import cpp as tnative
 from maskfusion_tpu_torch.camera import CameraIntrinsics as TorchIntrinsics
 
 CPU = torch.device("cpu")
@@ -66,3 +69,19 @@ def wait_for_jax_pending(engine) -> None:
     """jax_record_ready for each of a JAX engine's pending records."""
     for P in engine._pending:
         jax_record_ready(P)
+
+
+@contextlib.contextmanager
+def numpy_paths():
+    """Both packages on the numpy / scipy versions of their native host
+    library (mfcore): the JAX package's unloaded (the pattern of
+    tests/test_components_native.py), the port's ``cpp.disabled()``."""
+    import maskfusion_tpu.cpp as jnative
+
+    saved = jnative._lib, jnative._tried
+    jnative._lib, jnative._tried = None, True
+    try:
+        with tnative.disabled():
+            yield
+    finally:
+        jnative._lib, jnative._tried = saved
