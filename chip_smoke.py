@@ -89,6 +89,25 @@ stopped; any failure raises and exits non-zero):
      the launches, weights and peak memory, the MAC count and its bound at
      the bf16 peak; P2..P6 within 3e-2 (relative L2) of an f32 forward of
      the same weights, every output finite.
+ 11a. one train step (create_train_step) at micro_config(64) on the card
+     and on the CPU from the same parameters, batch and draws: the loss
+     within 1e-4 relative, each parameter's gradient within 1e-3 relative
+     L2 (the whole within 1e-4);
+ 11b. the shapes recipe (train_shapes, 700 steps) on the card, ms a step,
+     and its held-out quality on the card against the floors of
+     tests/test_maskrcnn_train.py (det IoU 0.5, class accuracy 0.75, mask
+     IoU 0.5, mean score 0.55) and the slow test's loss criterion;
+ 11c. the full-width train step (ResNet-50-FPN, 512 px, 81 classes, bf16
+     over float32 parameters, batch 2 of make_batch), 10 steps on one
+     batch: finite losses that fall, wall and card-busy ms a step,
+     launches and synchronises a step (none), peak memory, MACs against
+     the bf16 bound;
+ 12. -method cofusion: at 640x480 on bench.py's two-object frames without
+     their masks (FPS over 12 timed frames, the models, the kernels'
+     launches: no edge map; synchronises a frame); on the 160x120
+     two-object scene card against CPU from a carried state (model ids,
+     poses); through the CLI on a raw KLG log of phase 8's first 12
+     frames.
 The last lines are the four bench lines, the card's nvidia-smi line, one
 JSON line of kernel records, and {"ok": true, "device": {...}}.
 
@@ -1530,28 +1549,26 @@ def phase_bench(dev, frames, mo_frames, intr):
     return lines
 
 
-def phase_cli_nn(kernels, frames, workdir: Path):
-    """`--nn` on the card, as a user runs it: the multi-object CLI (the
-    prefused default) on a raw KLG log of `frames` (no masks) with the
-    full-width Mask R-CNN (seeded random weights) labelling them on its
-    worker thread and CUDA stream through a 5-frame delay queue.  It returns
-    0, processes every frame of the log, drains the queue at its end,
-    labels at least one frame, writes poses-0.txt and prints its FPS line;
-    the three kernels' launches are counted over the run."""
+def run_cli_log(kernels, frames, workdir: Path, name: str, flags):
+    """The multi-object CLI (maskfusion_tpu_torch.main) with `flags`, -ep
+    and a 2^22-surfel map on a raw KLG log of `frames` (one frame more: the
+    KLG reader never returns a log's last), the three kernels' launch
+    counts from 0, its output echoed.  Returns (rc, output, seconds,
+    launches, the frames processed, the FPS line's value, the export
+    directory)."""
     import contextlib
     import io
 
     from maskfusion_tpu_torch import main as cli
     from maskfusion_tpu_torch.io.klg_reader import write_klg
 
-    n = len(frames)
-    log_path = workdir / "nn.klg"
+    log_path = workdir / f"{name}.klg"
     stamped = [dataclasses.replace(f, timestamp=33333.0 * (i + 1))
                for i, f in enumerate(frames + frames[-1:])]
     write_klg(str(log_path), stamped, compress=False)
-    export = workdir / "nn"
-    argv = ["-l", str(log_path), "-q", "--nn", "-frameQ", "5", "-exportdir",
-            str(export), "-ep", "--global-capacity", str(1 << 22)]
+    export = workdir / name
+    argv = ["-l", str(log_path), "-q", *flags, "-exportdir", str(export),
+            "-ep", "--global-capacity", str(1 << 22)]
     kernels.reset_launch_counts()
     text = io.StringIO()
     t0 = time.perf_counter()
@@ -1565,12 +1582,28 @@ def phase_cli_nn(kernels, frames, workdir: Path):
                 ("bilateral_depth", "predict_l0_scan", "geometric_edge_map")}
     processed = re.search(r"processed (\d+) frames in .* \(([0-9.]+) FPS\)",
                           out)
-    labelled = re.search(r"Mask R-CNN labelled (\d+) frames", out)
-    log(f"  CLI --nn ({' '.join(argv[2:6])}): rc {rc}, {n} frames in "
+    log(f"  CLI {' '.join(flags)}: rc {rc}, {len(frames)} frames in "
         f"{seconds:.2f} s, launches {launches}")
+    return (rc, out, seconds, launches,
+            int(processed.group(1)) if processed else 0,
+            float(processed.group(2)) if processed else 0.0, export)
+
+
+def phase_cli_nn(kernels, frames, workdir: Path):
+    """`--nn` on the card, as a user runs it: the multi-object CLI (the
+    prefused default) on a raw KLG log of `frames` (no masks) with the
+    full-width Mask R-CNN (seeded random weights) labelling them on its
+    worker thread and CUDA stream through a 5-frame delay queue.  It returns
+    0, processes every frame of the log, drains the queue at its end,
+    labels at least one frame, writes poses-0.txt and prints its FPS line;
+    the three kernels' launches are counted over the run."""
+    n = len(frames)
+    rc, out, seconds, launches, processed, fps, export = run_cli_log(
+        kernels, frames, workdir, "nn", ["--nn", "-frameQ", "5"])
+    labelled = re.search(r"Mask R-CNN labelled (\d+) frames", out)
     if rc != 0:
         raise AssertionError(f"the --nn CLI returned {rc}")
-    if processed is None or int(processed.group(1)) != n:
+    if processed != n:
         raise AssertionError(f"the --nn CLI did not process its {n} frames")
     if labelled is None or int(labelled.group(1)) < 1:
         raise AssertionError("the --nn CLI labelled no frame")
@@ -1578,8 +1611,8 @@ def phase_cli_nn(kernels, frames, workdir: Path):
     if not poses or not all(np.isfinite(p).all() for p in poses):
         raise AssertionError("the --nn CLI wrote no finite poses")
     return {"frames": n, "seconds": seconds, "launches": launches,
-            "fps": float(processed.group(2)),
-            "labelled": int(labelled.group(1)), "poses": len(poses)}
+            "fps": fps, "labelled": int(labelled.group(1)),
+            "poses": len(poses)}
 
 
 def _valid_rows(out):
@@ -1650,10 +1683,11 @@ def phase_nn_trained(dev):
         k: meta[k] for k in ("det_iou", "mask_iou", "recall", "cls_acc")}}
 
 
-def network_macs(model, image):
-    """Multiply-accumulates of one forward, from the shapes each conv,
-    dense and transposed-conv layer sees (forward hooks): the mask head is
-    counted on every detection slot, valid or not, as it runs."""
+def network_macs(model, run):
+    """Multiply-accumulates of the network's layers while ``run()`` calls
+    it, by part, from the shapes each conv, dense and transposed-conv layer
+    sees (forward hooks): the mask head is counted on every slot it runs
+    on, valid or not."""
     import torch
 
     from maskfusion_tpu_torch.maskrcnn import model as mm
@@ -1679,7 +1713,7 @@ def network_macs(model, image):
                 hooks.append(mod.register_forward_hook(hook(part)))
     try:
         with torch.no_grad():
-            model(image)
+            run()
     finally:
         for h in hooks:
             h.remove()
@@ -1803,7 +1837,7 @@ def phase_nn_full_width(dev):
     nms_det = profile_calls(lambda: mm.nms_fixed(
         boxes[:nb], scores[:nb], cfg.max_detections,
         cfg.detection_nms_threshold))[0]
-    macs = network_macs(net.model, x)
+    macs = network_macs(net.model, lambda: net.model(x))
     total_macs = sum(macs.values())
     t_ops = 2 * total_macs / PEAK_BF16_S * 1e3
     nbytes = weights + x.numel() * 4 + sum(v.numel() * v.element_size()
@@ -1857,6 +1891,342 @@ def phase_nn_full_width(dev):
                              f"({calls})")
     return rec
 
+
+# ---------------------------------------------------------------- training
+def _grads(model):
+    return {n: p.grad.detach().float().cpu() for n, p in
+            model.named_parameters() if p.grad is not None}
+
+
+def phase_train_micro(dev):
+    """Phase 11a: one create_train_step step at micro_config(64) (float32)
+    on the card and on the CPU from the same seeded parameters, batch (two
+    make_batch scenes) and draws: the losses within 1e-4 relative, every
+    parameter's gradient within 1e-3 relative L2 and the whole gradient
+    within 1e-4.  The card's gradients are not deterministic (the backward
+    of ROIAlign's gathers adds with atomics), hence a relative bound."""
+    import torch
+
+    from maskfusion_tpu_torch.maskrcnn import synthetic_shapes as ss
+    from maskfusion_tpu_torch.parallel.train import create_train_step
+
+    cfg = ss.micro_config(64)
+    batch = [torch.from_numpy(a) for a in
+             ss.make_batch(np.random.default_rng(0), 2, 64)]
+    draws = torch.rand((2, 2, cfg.post_nms_proposals + batch[1].shape[1]),
+                       generator=torch.Generator().manual_seed(0))
+    out = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        init_fn, step_fn = create_train_step(cfg, 1e-3, device=device)
+        state = init_fn(0, 2)
+        state, loss = step_fn(state, draws.to(device),
+                              *(a.to(device) for a in batch))
+        out[name] = (float(loss), _grads(state.params))
+    (la, ga), (lb, gb) = out["card"], out["cpu"]
+    rel = {k: float(torch.linalg.vector_norm(ga[k] - gb[k])
+                    / torch.linalg.vector_norm(gb[k]).clamp_min(1e-30))
+           for k in gb}
+    num = sum(float(torch.linalg.vector_norm(ga[k] - gb[k])) ** 2
+              for k in gb)
+    den = sum(float(torch.linalg.vector_norm(gb[k])) ** 2 for k in gb)
+    whole = math.sqrt(num / den)
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    rec = {"loss_card": la, "loss_cpu": lb,
+           "loss_rel": abs(la - lb) / abs(lb), "grad_rel_l2_whole": whole,
+           "grad_rel_l2_worst": worst, "parameters": len(gb)}
+    log(f"  micro step, card against CPU: loss {la:.6f} / {lb:.6f} "
+        f"({rec['loss_rel']:.2e} relative); gradients of {len(gb)} "
+        f"parameters: whole {whole:.2e} relative L2, worst "
+        f"{[(k, f'{v:.2e}') for k, v in worst]}")
+    if ga.keys() != gb.keys() or not (
+            rec["loss_rel"] <= 1e-4 and worst[0][1] <= 1e-3
+            and whole <= 1e-4):
+        raise AssertionError(f"the card's train step differs from the "
+                             f"CPU's: {rec}")
+    return rec
+
+
+def phase_train_shapes(dev):
+    """Phase 11b: the shapes recipe (train_shapes, 700 steps) on the card,
+    then its held-out quality on the card against the floors of
+    tests/test_maskrcnn_train.py::test_shapes_checkpoint_quality, and the
+    slow trainability test's criterion (the mean of the last 15 losses
+    below 0.8 times the mean of the first 10)."""
+    import torch
+
+    from maskfusion_tpu_torch.maskrcnn import synthetic_shapes as ss
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, losses = ss.train_shapes(700, device=dev)
+    seconds = time.perf_counter() - t0
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-15:]))
+    t1 = time.perf_counter()
+    q = ss.eval_shapes_detection(params, device=dev)
+    eval_s = time.perf_counter() - t1
+    rec = {"steps": len(losses), "seconds": seconds,
+           "ms_per_step": seconds / len(losses) * 1e3,
+           "loss_first10": first, "loss_last15": last, "eval": q,
+           "eval_s": eval_s}
+    log(f"  train_shapes(700) on the card in {seconds:.1f} s = "
+        f"{rec['ms_per_step']:.2f} ms a step; loss {first:.4f} (first 10) "
+        f"-> {last:.4f} (last 15); eval_shapes_detection in {eval_s:.1f} s: "
+        f"{q}")
+    floors = {"det_iou": 0.5, "cls_acc": 0.75, "mask_iou": 0.5,
+              "mean_score": 0.55}
+    if not (np.isfinite(losses).all() and last < 0.8 * first):
+        raise AssertionError(f"train_shapes did not learn: {first} -> "
+                             f"{last}")
+    if not all(q[k] >= v for k, v in floors.items()):
+        raise AssertionError(f"the shapes recipe on the card: {q} below "
+                             f"{floors}")
+    return rec
+
+
+def phase_train_full_width(dev):
+    """Phase 11c: create_train_step(MaskRCNNConfig()) -- ResNet-50-FPN,
+    512 px, 81 classes, bf16 compute over float32 parameters, Adam at 1e-4
+    -- on a batch of two make_batch scenes at 512 px, 10 steps on that one
+    batch with a CUDA generator: every loss finite and the mean of the last
+    3 below the first; wall ms a step (host clock to a synchronise, steps
+    4-9), the card's busy ms, launches and synchronises of one profiled
+    step (none may synchronise), peak memory, and the step's MACs (the
+    forward's, counted by hooks on train_losses, times 3 for the
+    backward's two products) against the bf16 peak."""
+    import torch
+
+    from maskfusion_tpu_torch.maskrcnn import model as mm
+    from maskfusion_tpu_torch.maskrcnn import synthetic_shapes as ss
+    from maskfusion_tpu_torch.parallel.train import create_train_step
+
+    cfg = mm.MaskRCNNConfig()
+    S = cfg.image_size
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    init_fn, step_fn = create_train_step(cfg, device=dev)
+    state = init_fn(0, 2)
+    batch = [torch.from_numpy(a).to(dev) for a in
+             ss.make_batch(np.random.default_rng(40), 2, S)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(3):
+        state, loss = step_fn(state, gen, *batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(6):
+        state, loss = step_fn(state, gen, *batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 6
+    peak = torch.cuda.max_memory_allocated() - base
+
+    def one_step():
+        nonlocal state
+        state, loss = step_fn(state, gen, *batch)
+        losses.append(loss)
+
+    launches, syncs, calls, busy_ms = profile_calls(one_step)
+    values = torch.stack(losses).cpu().numpy()
+    draws = torch.rand((2, 2, cfg.post_nms_proposals + batch[1].shape[1]),
+                       generator=gen, device=dev)
+    model = state.params
+    fwd_macs = sum(network_macs(model, lambda: [
+        model.train_losses(batch[0][b:b + 1], *(a[b] for a in batch[1:]),
+                           draws[b]) for b in range(2)]).values())
+    step_macs = 3 * fwd_macs
+    t_ops = 2 * step_macs / PEAK_BF16_S * 1e3
+    # bytes: the images and ground truth read once; the float32 parameters
+    # and both Adam moments read and written once
+    nbytes = (sum(a.numel() * a.element_size() for a in batch)
+              + 2 * 3 * 4 * n_params)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    rec = {"losses": values.tolist(), "first_3_steps_s": first_s,
+           "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+           "launches_per_step": launches, "synchronises_per_step": syncs,
+           "peak_mb": peak / 2 ** 20, "parameters": n_params,
+           "forward_gmac": fwd_macs / 1e9, "step_gmac": step_macs / 1e9,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes}
+    log(f"  full width (512 px, 81 classes, bf16 over f32 parameters, "
+        f"batch 2): {n_params / 1e6:.2f} M parameters; first 3 steps "
+        f"{first_s:.2f} s; {wall_ms:.1f} ms a step (wall, 6 steps); the "
+        f"card busy {busy_ms:.1f} ms a step; {launches} launches and {syncs} "
+        f"synchronises a step; peak {rec['peak_mb']:.0f} MB; "
+        f"{fwd_macs / 1e9:.1f} GMAC forward, {step_macs / 1e9:.1f} a step, "
+        f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}; bf16 "
+        f"{t_ops:.3f} ms, bytes {t_bytes:.3f} ms); losses "
+        f"{[round(float(v), 3) for v in values]}")
+    if not np.isfinite(values).all():
+        raise AssertionError(f"full-width losses not finite: {values}")
+    if not values[-3:].mean() < values[0]:
+        raise AssertionError(f"full-width losses did not fall: {values}")
+    if syncs:
+        raise AssertionError(f"a full-width train step synchronised {syncs} "
+                             f"times ({calls})")
+    return rec
+
+
+# ---------------------------------------------------------------- Co-Fusion
+def cofusion_config(Config, **kw):
+    """bench.py's two-object configuration with the Co-Fusion segmenter
+    (the CLI's -method cofusion); pipelined_multiobject stays at its
+    default, which Co-Fusion answers with the synchronous frame."""
+    from maskfusion_tpu_torch import bench
+
+    return dataclasses.replace(bench.two_object_config(),
+                               seg_method="cofusion", **kw)
+
+
+def phase_cofusion(dev, kernels, MaskFusion, Config, Resolution,
+                   CameraIntrinsics, FrameData, frames, intr, n_warm,
+                   n_timed, n_prof):
+    """Phase 12a: -method cofusion at 640x480 on bench.py's two-object
+    frames (their masks dropped: Co-Fusion segments by motion), in
+    bench.py's configuration with the Co-Fusion segmenter: warm-up and
+    timed frames (FPS), the models at the end, the three kernels' launches
+    over the run (the bilateral filter once a frame, the scan at least
+    once, the edge map never: Co-Fusion computes no edges), every frame
+    synchronous; then a profile of a few more frames (synchronises and
+    launches a frame, the card's busy share)."""
+    import torch
+
+    W, H = 640, 480
+    engine = MaskFusion(Resolution(W, H), CameraIntrinsics(*intr),
+                        cofusion_config(Config), device=dev)
+    frames = [dataclasses.replace(f, mask=None, class_ids=None)
+              for f in frames]
+    n_main = n_warm + n_timed
+    kernels.reset_launch_counts()
+    n_models = []
+    t0 = time.perf_counter()
+    for f in frames[:n_warm]:
+        engine.process_frame(f)
+        n_models.append(len(engine.models))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for f in frames[n_warm:n_main]:
+        engine.process_frame(f)
+        n_models.append(len(engine.models))
+        if engine._pending:
+            raise AssertionError("Co-Fusion took the pipelined step")
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    fps = n_timed / total
+    launches = {k: getattr(kernels, k).launches for k in
+                ("bilateral_depth", "predict_l0_scan", "geometric_edge_map")}
+    log(f"  warm-up {n_warm} frames in {warm_s:.2f} s; timed {n_timed} "
+        f"frames in {total:.3f} s = {fps:.2f} FPS; models after each frame "
+        f"{n_models}; launches over the {n_main} frames {launches}")
+    if (launches["bilateral_depth"] != n_main
+            or launches["predict_l0_scan"] < n_main
+            or launches["geometric_edge_map"] != 0):
+        raise AssertionError(f"Co-Fusion launched {launches} in {n_main} "
+                             "frames")
+    for m in engine.models:
+        if not np.isfinite(m.pose_log[-1]["pose"].cpu().numpy()).all():
+            raise AssertionError(f"model {m.model_id}: non-finite pose")
+    prof = profile_frames(engine, frames[n_main:n_main + n_prof],
+                          1000.0 / fps)
+    return {"fps": fps, "timed_s": total, "frames_timed": n_timed,
+            "n_models": n_models, "n_models_end": len(engine.models),
+            "model_ids": [m.model_id for m in engine.models],
+            "surfels": [m.surfel_count for m in engine.models],
+            "launches": launches, "launches_per_frame": {
+                k: v / n_main for k, v in launches.items()},
+            "profile": prof}
+
+
+def phase_cofusion_parity(dev, MaskFusion, Config, Resolution,
+                          CameraIntrinsics, FrameData, n_frames: int = 5):
+    """Phase 12b: the 160x120 two-object scene without masks through the
+    Co-Fusion engine on the CPU, frames 0-8; the card starts from the CPU
+    engine's state after frame 3 (convert.engine_snapshot /
+    restore_engine) and runs frames 4-8 (the CRF spawns an object from the
+    motion at frame 7 on both).  Held on every frame: the same model ids, the
+    global pose within 1 mm / 0.05 deg, object poses within 8 mm (the
+    port's lockstep bounds against the JAX engine); reported: the share of
+    pixels whose segmentation differs."""
+    import torch
+
+    from maskfusion_tpu_torch.convert import engine_snapshot, restore_engine
+
+    frames = synthetic_two_objects(4 + n_frames)
+    fx, fy, cx, cy, w, h = SMALL
+    carry_at = 4
+
+    def engine(device):
+        return MaskFusion(
+            Resolution(w, h), CameraIntrinsics(fx, fy, cx, cy),
+            Config(global_surfel_capacity=1 << 16,
+                   object_surfel_capacity=1 << 13, seg_method="cofusion",
+                   model_spawn_offset=0, use_so3=False, open_loop=True),
+            device=device)
+
+    def step(eng, i):
+        rgb, depth, _ = frames[i]
+        eng.process_frame(FrameData(rgb=rgb, depth=depth,
+                                    timestamp=float(i)))
+        return ([m.model_id for m in eng.models],
+                [m.pose_log[-1]["pose"].cpu().numpy().astype(np.float64)
+                 for m in eng.models], eng.last_segmentation)
+
+    cpu_eng = engine(torch.device("cpu"))
+    for i in range(carry_at):
+        step(cpu_eng, i)
+    card_eng = engine(dev)
+    restore_engine(card_eng, engine_snapshot(cpu_eng))
+    rows = []
+    for i in range(carry_at, len(frames)):
+        (ia, pa, sa), (ib, pb, sb) = step(card_eng, i), step(cpu_eng, i)
+        if ia != ib:
+            raise AssertionError(f"frame {i}: models {ia} on the card, {ib} "
+                                 "on the CPU")
+        r = {"frame": i, "models": ia,
+             "global_m": float(np.linalg.norm(pa[0][:3, 3] - pb[0][:3, 3])),
+             "global_deg": _rot_deg(pa[0], pb[0]),
+             "object_m": max((float(np.linalg.norm(x[:3, 3] - y[:3, 3]))
+                              for x, y in zip(pa[1:], pb[1:])), default=0.0),
+             "segmentation_differs": float((sa != sb).mean())}
+        log(f"    frame {i}: models {ia}; global {r['global_m'] * 1e3:.4f} "
+            f"mm {r['global_deg']:.5f} deg; objects {r['object_m'] * 1e3:.3f}"
+            f" mm apart; segmentation differs on "
+            f"{r['segmentation_differs']:.4%}")
+        if not (r["global_m"] <= 1e-3 and r["global_deg"] <= 0.05
+                and r["object_m"] <= 8e-3):
+            raise AssertionError(f"Co-Fusion card and CPU differ: {r}")
+        rows.append(r)
+    return rows
+
+
+def phase_cli_cofusion(kernels, frames, workdir: Path):
+    """Phase 12c: `-method cofusion` through the CLI on a raw KLG log of
+    phase 8's first frames (the static bench frames): it returns 0,
+    processes every frame, writes one finite pose a frame (every frame is
+    synchronous, so none is pending at the end), launches the bilateral
+    filter once a frame and no edge map."""
+    n = len(frames)
+    rc, out, seconds, launches, processed, fps, export = run_cli_log(
+        kernels, frames, workdir, "cofusion", ["-method", "cofusion"])
+    if rc != 0:
+        raise AssertionError(f"the Co-Fusion CLI returned {rc}")
+    if processed != n:
+        raise AssertionError(f"the Co-Fusion CLI did not process its {n} "
+                             "frames")
+    _, poses = read_tum(export / "poses-0.txt")
+    if len(poses) != n or not all(np.isfinite(p).all() for p in poses):
+        raise AssertionError(f"the Co-Fusion CLI wrote {len(poses)} poses "
+                             f"for {n} frames, or non-finite ones")
+    if launches["geometric_edge_map"] or launches["bilateral_depth"] != n:
+        raise AssertionError(f"the Co-Fusion CLI launched {launches}")
+    return {"frames": n, "seconds": seconds, "launches": launches,
+            "fps": fps, "poses": len(poses)}
 
 def main() -> int:
     import torch
@@ -1992,6 +2362,32 @@ def main() -> int:
     log_phase("phase 10b: the full-width Mask R-CNN (ResNet-50-FPN, 512 px, "
               "bf16)")
     nn_full = phase_nn_full_width(dev)
+
+    log_phase("phase 11a: the micro_config train step, card against CPU")
+    train = {"micro": phase_train_micro(dev)}
+    log_phase("phase 11b: the shapes recipe (train_shapes, 700 steps) on "
+              "the card")
+    train["shapes"] = phase_train_shapes(dev)
+    log_phase("phase 11c: the full-width train step (ResNet-50-FPN, 512 px, "
+              "bf16 over f32 parameters, batch 2)")
+    train["full_width"] = phase_train_full_width(dev)
+
+    log_phase("phase 12: -method cofusion at 640x480 on bench.py's "
+              "two-object frames, card against CPU at 160x120, and the CLI")
+    # bench.py's objects move least at the start of its 50-frame loop: the
+    # first 20 frames warm up
+    cofusion = phase_cofusion(dev, kernels, MaskFusion, Config, Resolution,
+                              CameraIntrinsics, FrameData, mo_frames, intr,
+                              20, 12, 2)
+    cofusion["parity"] = phase_cofusion_parity(
+        dev, MaskFusion, Config, Resolution, CameraIntrinsics, FrameData)
+    with tempfile.TemporaryDirectory(dir=build) as workdir:
+        cofusion["cli"] = phase_cli_cofusion(kernels, frames[:12],
+                                             Path(workdir))
+    for rec in records:
+        rec["launches_by_path"].update(
+            cofusion=cofusion["launches"][rec["name"]],
+            cli_cofusion=cofusion["cli"]["launches"][rec["name"]])
     torch.cuda.synchronize()
     log(f"engine: {json.dumps({k: v for k, v in run.items()})}")
     log(f"parity: {json.dumps(parity)}")
@@ -2002,6 +2398,8 @@ def main() -> int:
     log(f"host segmentation: {json.dumps(host_seg)}")
     log(f"nn trained: {json.dumps(nn_trained)}")
     log(f"nn full width: {json.dumps(nn_full)}")
+    log(f"train: {json.dumps(train)}")
+    log(f"cofusion: {json.dumps(cofusion)}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     for line in bench_lines:
         print(json.dumps(line), flush=True)

@@ -30,5 +30,15 @@ def default_device() -> _torch.device:
     return _torch.device("cuda")
 
 
+def resolve_device(device, who: str) -> _torch.device:
+    """``device``, or the default card; raises when that is a CUDA device
+    and no card is found (``who`` names the entry point)."""
+    dev = _torch.device(device) if device is not None else default_device()
+    if dev.type == "cuda" and not _torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA card; pass device='cpu' to run "
+                           "on the CPU")
+    return dev
+
+
 __all__ = ["CameraIntrinsics", "Resolution", "Config", "default_device",
-           "__version__"]
+           "resolve_device", "__version__"]

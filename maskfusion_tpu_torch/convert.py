@@ -137,7 +137,7 @@ def restore_engine(engine: MaskFusion, snap: Dict[str, Any]) -> None:
 
 
 __all__ = ["map_state_from_numpy", "state_to_numpy", "engine_snapshot",
-           "restore_engine"]
+           "restore_engine", "maskrcnn_state_dict", "maskrcnn_flax_tree"]
 
 
 # ---------------------------------------------------------------- Mask R-CNN
@@ -219,3 +219,59 @@ def maskrcnn_state_dict(flax_tree, cfg) -> Dict[str, torch.Tensor]:
                 v = v.T
         out[f"{name}.{leaf}"] = torch.from_numpy(np.array(v, order="C"))
     return out
+
+
+def maskrcnn_flax_tree(state_dict, cfg) -> dict:
+    """The JAX package's parameter tree ``{"params": {...}}`` of numpy
+    float32 arrays from the port model's ``state_dict``: the inverse of
+    ``maskrcnn_state_dict``, exact both ways (transposes and flips only).
+    What ``checkpoint_io.save_params`` writes and the JAX package's
+    ``checkpoint_io.load_params`` and ``MaskRCNN.apply`` read."""
+    norm = "FrozenBatchNorm" if cfg.norm == "frozen_bn" else "GroupNorm"
+    block = {"conv1": "Conv_0", "conv2": "Conv_1", "conv3": "Conv_2",
+             "down": "Conv_3", "norm1": f"{norm}_0", "norm2": f"{norm}_1",
+             "norm3": f"{norm}_2", "down_norm": f"{norm}_3"}
+
+    def path(name):
+        head, *rest = name.split(".")
+        if head == "backbone":
+            if rest[0] == "stem":
+                return [head, "Conv_0"]
+            if rest[0] == "stem_norm":
+                return [head, f"{norm}_0"]
+            if rest[0] == "lateral":
+                return [head, f"Conv_{int(rest[1]) + 1}"]
+            if rest[0] == "output":
+                return [head, f"Conv_{int(rest[1]) + 5}"]
+            if rest[0] == "blocks":
+                return [head, f"Bottleneck_{rest[1]}", block[rest[2]]]
+        if head == "rpn":
+            return [head, "rpn_" + rest[0]]
+        if head == "box_head" and rest[0].startswith("norm"):
+            return [head, f"{norm}_{int(rest[0][4:]) - 1}"]
+        if head == "mask_head" and rest[0] == "norms":
+            return [head, f"{norm}_{rest[1]}"]
+        if head == "mask_head" and rest[0] == "convs":
+            return [head, f"conv{int(rest[1]) + 1}"]
+        if head in ("box_head", "mask_head"):
+            return [head, rest[0]]
+        raise KeyError(name)
+
+    tree: dict = {}
+    for key, t in state_dict.items():
+        name, leaf = key.rsplit(".", 1)
+        v = t.detach().to("cpu", torch.float32).numpy()
+        p = path(name)
+        if leaf == "weight":
+            leaf = "kernel"
+            if p[-1] == "deconv":
+                v = v.transpose(2, 3, 0, 1)[::-1, ::-1]
+            elif v.ndim == 4:
+                v = v.transpose(2, 3, 1, 0)
+            else:
+                v = v.T
+        node = tree
+        for part in p:
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(v, np.float32, order="C")
+    return {"params": tree}

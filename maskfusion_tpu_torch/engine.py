@@ -49,8 +49,13 @@ The stopwatch times the host's dispatch of each stage (``Preprocess``,
 only ``Run``), and ``Config.diag_export_dir`` writes the per-frame metrics
 CSV and alignment-error images (utils/diag_export).
 
-The Co-Fusion segmenter, redetection and relocalisation come with later
-slices; asking for them raises NotImplementedError.  Multi-device sharding
+With the Co-Fusion segmenter (``seg_method="cofusion"``) every frame runs
+the synchronous step, whatever ``pipelined_multiobject`` says: the
+pipelined schedules need the device edge map, which only the maskfusion
+segmenter has (engine.py:1147-1153 of the JAX package); its host
+segmentation reads every model's prediction each frame
+(``_cf_model_views``).  Redetection and relocalisation come with a later
+slice; asking for them raises NotImplementedError.  Multi-device sharding
 of the object axis (`_shard_model_axis`) is ROADMAP queue 1 item 14.
 
 The JAX package jits each stage, donates the map buffers and prewarms its
@@ -222,10 +227,6 @@ def _check_supported(cfg: Config) -> None:
             "queue 1 item 12)")
     if cfg.static_mode:
         return
-    if cfg.seg_method in ("cofusion", "co_fusion"):
-        raise NotImplementedError(
-            "seg_method='cofusion' is not ported yet (ROADMAP queue 1 item "
-            "11)")
     if cfg.enable_redetection:
         raise NotImplementedError(
             "enable_redetection: model redetection needs the fern model "
@@ -278,7 +279,7 @@ class MaskFusion:
         self.segmenter = None
         if not self.cfg.static_mode:
             self.segmenter = create_segmenter(self.cfg.seg_method, self.cfg,
-                                              resolution, intr)
+                                              resolution, intr, self.device)
         self._last_count = 0
         # bucket sizing works from a count ESTIMATE refreshed every
         # DIAG_INTERVAL frames, extrapolated with the observed append rate
@@ -1055,6 +1056,63 @@ class MaskFusion:
                                           np.int32))
         return self.combine_ids(depths, ids_vec)
 
+    def _cf_model_views(self, frame: FrameData) -> List[dict]:
+        """Per-model alignment-error + confidence views for the Co-Fusion
+        CRF (engine.py:1465-1538 of the JAX package; the reference feeds
+        per-model ICP-error/conf textures into its unaries,
+        CfSegmentation.cpp:108-228).
+
+        error = max(geometric, photometric) residual of the model's last
+        prediction against the live frame, in metres-equivalent units:
+          geometric   |predicted z - frame z| (out-of-plane motion);
+          photometric |predicted gray - frame gray| / 255 * 0.5 * depth
+                      range, both pooled over 8x8 blocks (in-plane motion
+                      of textured objects, insensitive to the one-pose-stale
+                      prediction's few-pixel shift);
+        where the predicted surface lies more than 3 cm in front of the
+        frame's depth (the trail a surface leaves as it moves away) and
+        where the frame has no depth, the error is 0.  conf = prediction
+        coverage (valid predicted depth).  Every model's predicted depth
+        and colour come to the host in one fetch: the Co-Fusion frame waits
+        for the card here."""
+        d = frame.host_depth()
+        gray = np.asarray(frame.host_rgb(), np.float32).mean(axis=-1)
+        dr = float(np.nanmax(d) - np.nanmin(d[d > 0])) if (d > 0).any() \
+            else 1.0
+        dr = max(dr, 1e-3)
+        B = 8
+        H, W = gray.shape
+        Hc, Wc = (H // B) * B, (W // B) * B
+
+        def pool(a):
+            return a[:Hc, :Wc].reshape(Hc // B, B, Wc // B, B).mean((1, 3))
+
+        def unpool(a):
+            out = np.zeros((H, W), a.dtype)
+            out[:Hc, :Wc] = np.repeat(np.repeat(a, B, 0), B, 1)
+            return out
+
+        gray_p = pool(gray)
+        preds = torch.stack([
+            torch.cat([m.state.pred_vmap[..., 2:3], m.state.pred_rgb], -1)
+            for m in self.models]).cpu().numpy()
+        views = []
+        for pred in preds:
+            pz = pred[..., 0]
+            pg = pred[..., 1:].astype(np.float32).mean(axis=-1)
+            cov = np.isfinite(pz) & (pz > 0)
+            covf = cov.astype(np.float32)
+            trail = np.nan_to_num(pz) < (d - 0.03)
+            both = cov & (d > 0) & ~trail
+            geom = np.where(both, np.abs(np.nan_to_num(pz) - d), 0.0)
+            den = pool(covf)
+            pg_p = pool(np.nan_to_num(pg) * covf) / np.maximum(den, 1e-6)
+            dI = np.where(den > 0.5, np.abs(pg_p - gray_p), 0.0)
+            photo = np.where(both, unpool(dI) / 255.0 * 0.5 * dr, 0.0)
+            views.append({"error": np.maximum(geom, photo).astype(np.float32),
+                          "conf": covf})
+        return views
+
     def _segment_and_update_models(self, frame: FrameData, prep, rgb,
                                    ids: np.ndarray, nonedge=None,
                                    tick: Optional[int] = None) -> np.ndarray:
@@ -1087,6 +1145,8 @@ class MaskFusion:
             # the device part: edge map (kernel 3) -> non-edge binary
             kw["nonedge"] = self.segmenter.edge_binary(vmap, nmap)[1].cpu()
             self._mark("segment_device")
+        if getattr(self.segmenter, "wants_model_views", False):
+            kw["model_views"] = self._cf_model_views(frame)
         seg_result = self.segmenter.perform(
             frame, vmap, nmap, ids, infos, self._get_next_model_id(False),
             allow_new, **kw)

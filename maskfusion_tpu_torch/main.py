@@ -196,8 +196,8 @@ def make_config(args):
 
 def check_ported(args) -> None:
     """Raise NotImplementedError for a flag whose code is not ported yet,
-    naming the ROADMAP item that brings it.  (-rl, -method cofusion and
-    redetection raise in the engine; every --pipeline schedule runs.)"""
+    naming the ROADMAP item that brings it.  (-rl and redetection raise in
+    the engine; every --pipeline schedule and -method runs.)"""
     for attr, flag, item in _UNPORTED:
         if getattr(args, attr):
             raise NotImplementedError(

@@ -24,10 +24,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from maskfusion_tpu_torch import default_device
+from maskfusion_tpu_torch import resolve_device
 from maskfusion_tpu_torch.frame import FrameData
 from maskfusion_tpu_torch.maskrcnn.model import (MaskRCNN, MaskRCNNConfig,
-                                                 init_params_)
+                                                 init_params_,
+                                                 to_compute_dtype_)
 from maskfusion_tpu_torch.maskrcnn.resize import (resize_mask_f32,
                                                   resize_rgb_u8)
 
@@ -106,11 +107,7 @@ class MaskRCNNInference:
                  filter_classes: Optional[Sequence[int]] = None,
                  device=None):
         self.cfg = cfg or MaskRCNNConfig()
-        self.device = torch.device(device) if device is not None \
-            else default_device()
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("MaskRCNNInference: no CUDA card; pass "
-                               "device='cpu' to run on the CPU")
+        self.device = resolve_device(device, "MaskRCNNInference")
         self.filter_classes = list(filter_classes) if filter_classes else None
         model = MaskRCNN(self.cfg)
         if params is None:
@@ -119,7 +116,8 @@ class MaskRCNNInference:
             from maskfusion_tpu_torch.convert import maskrcnn_state_dict
 
             model.load_state_dict(maskrcnn_state_dict(params, self.cfg))
-        model = model.to(self.device).eval()
+        # the serving copy holds its weights in the compute dtype
+        model = to_compute_dtype_(model).to(self.device).eval()
         self.stream = None
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)

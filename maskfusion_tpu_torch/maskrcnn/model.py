@@ -1,26 +1,33 @@
-"""Mask R-CNN (ResNet-50/101-FPN) for inference, in PyTorch.
+"""Mask R-CNN (ResNet-50/101-FPN) for inference and training, in PyTorch.
 
-Port of the inference half of ``maskfusion_tpu/maskrcnn/model.py`` (the
-reference's embedded matterport network, Core/Segmentation/MaskRCNN): the
-backbone, the RPN, ROIAlign, the box and class head and the mask head, with
-the JAX package's static shapes (fixed proposal and detection counts padded
-with validity masks) and its numerics:
+Port of ``maskfusion_tpu/maskrcnn/model.py`` (the reference's embedded
+matterport network, Core/Segmentation/MaskRCNN): the backbone, the RPN,
+ROIAlign, the box and class head and the mask head, with the JAX package's
+static shapes (fixed proposal and detection counts padded with validity
+masks), its training losses (RPN targets, proposal-target sampling, the box
+and mask head losses) and its numerics:
 
-- convs and dense layers take their inputs, weights and biases in
-  ``cfg.dtype`` (bf16 by default) and give ``cfg.dtype``; GroupNorm takes
-  its statistics in float32 (E[x^2] - E[x]^2, epsilon 1e-6, flax's) and
-  casts back; the RPN, ROIAlign and the heads' outputs are float32;
+- convs and dense layers hold float32 parameters, as flax's
+  ``param_dtype``, and cast weight, bias and input to ``cfg.dtype`` (bf16
+  by default) in the call, so an optimiser updates float32 weights;
+  ``to_compute_dtype_`` stores them in ``cfg.dtype`` once for serving,
+  which gives the same bits (both casts round to nearest even); GroupNorm
+  takes its statistics in float32 (E[x^2] - E[x]^2, epsilon 1e-6, flax's)
+  and casts back; the RPN, ROIAlign and the heads' outputs are float32;
 - SAME padding as XLA pads it: the stem's 3x3/2 max pool pads 0 before and
   1 after with -inf; flax's 2x2/2 transposed conv (``transpose_kernel``
   False) puts kernel tap 1 on even outputs where F.conv_transpose2d puts
   tap 0, so ``maskfusion_tpu_torch.convert.maskrcnn_state_dict`` flips it;
-- ties: proposals are the first ``pre_nms_limit`` scores of a stable
-  descending sort (``jax.lax.top_k`` puts the lower index first), and the
-  NMS and class argmaxes take the first maximum.
+- ties: proposals, and the sampled positive and negative training ROIs,
+  are the first of a stable descending sort (``jax.lax.top_k`` puts the
+  lower index first), and the NMS, class and IoU argmaxes take the first
+  maximum.
 
 Modules are NCHW ``nn.Module``s, run channels-last on CUDA; a feature map's
-NHWC view is free there.  The NMS loops run on device tensors with no host
-synchronise.  There is no hand-written kernel here: the JAX package leaves
+NHWC view is free there.  The NMS loops and the training losses run on
+device tensors with no host synchronise.  The JAX ``train=True`` flag
+reaches no layer (GroupNorm keeps no batch statistics), so there is no
+train mode here.  There is no hand-written kernel here: the JAX package leaves
 the whole network to XLA, and the port leaves it to torch ops.
 """
 
@@ -28,7 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +68,12 @@ class MaskRCNNConfig:
     # "gn" (from-scratch training) or "frozen_bn" (converted matterport
     # weights, which bake BatchNorm statistics)
     norm: str = "gn"
+    # training (read by rpn_targets and proposal_targets)
+    rpn_positive_iou: float = 0.7
+    rpn_negative_iou: float = 0.3
+    train_rois: int = 64                   # matterport TRAIN_ROIS_PER_IMAGE
+    roi_positive_ratio: float = 0.33
+    roi_positive_iou: float = 0.5
     # box-delta normalisation (matterport BBOX_STD_DEV / RPN_BBOX_STD_DEV)
     bbox_std: Tuple[float, ...] = (0.1, 0.1, 0.2, 0.2)
     dtype: Any = torch.bfloat16
@@ -71,48 +84,66 @@ class MaskRCNNConfig:
 # --------------------------------------------------------------------------
 
 class Conv(nn.Module):
-    """flax nn.Conv: weight and bias held in ``dtype``, the input cast to it;
-    ``padding`` is the symmetric SAME padding of a stride-1 kernel (every
-    strided conv of the network is 1x1 or explicitly padded)."""
+    """flax nn.Conv: float32 weight and bias (flax's param_dtype), cast with
+    the input to ``dtype`` in the call; ``padding`` is the symmetric SAME
+    padding of a stride-1 kernel (every strided conv of the network is 1x1
+    or explicitly padded)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  padding: Optional[int] = None, dtype=torch.float32):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, k, k, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(cout, dtype=dtype))
+        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.dtype = dtype
         self.stride = stride
         self.padding = (k - 1) // 2 if padding is None else padding
 
     def forward(self, x):
-        return F.conv2d(x.to(self.weight.dtype), self.weight, self.bias,
+        dt = self.dtype
+        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
                         self.stride, self.padding)
 
 
 class Dense(nn.Module):
-    """flax nn.Dense in ``dtype`` (weight (out, in), torch's layout)."""
+    """flax nn.Dense computing in ``dtype`` (weight (out, in), torch's
+    layout; float32 parameters)."""
 
     def __init__(self, cin: int, cout: int, dtype=torch.float32):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(cout, dtype=dtype))
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.dtype = dtype
 
     def forward(self, x):
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class ConvTranspose2x2(nn.Module):
     """flax ConvTranspose((2, 2), strides=2, padding="SAME") as
-    F.conv_transpose2d: weight (in, out, 2, 2), flipped from flax's kernel
-    by the converter."""
+    F.conv_transpose2d computing in ``dtype``: weight (in, out, 2, 2),
+    flipped from flax's kernel by the converter."""
 
     def __init__(self, cin: int, cout: int, dtype=torch.float32):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cin, cout, 2, 2, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(cout, dtype=dtype))
+        self.weight = nn.Parameter(torch.empty(cin, cout, 2, 2))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.dtype = dtype
 
     def forward(self, x):
-        return F.conv_transpose2d(x.to(self.weight.dtype), self.weight,
-                                  self.bias, stride=2)
+        dt = self.dtype
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt),
+                                  self.bias.to(dt), stride=2)
+
+
+def to_compute_dtype_(model: nn.Module) -> nn.Module:
+    """Store every conv, dense and transposed-conv parameter in its compute
+    dtype, in place: a serving copy whose calls cast nothing.  Its forward
+    equals the float32-held one bit for bit."""
+    for mod in model.modules():
+        if isinstance(mod, (Conv, Dense, ConvTranspose2x2)):
+            mod.to(mod.dtype)
+    return model
 
 
 class GroupNorm(nn.Module):
@@ -551,6 +582,206 @@ class MaskRCNN(nn.Module):
             torch.arange(mask_logits.shape[0], device=mask_logits.device),
             final_cls]
         return out
+
+    def train_losses(self, image, gt_boxes, gt_classes, gt_valid, gt_masks,
+                     draws) -> Dict[str, torch.Tensor]:
+        """End-to-end training losses for one image (model.py:446-482 of
+        the JAX package): RPN class and box, then the box head's class and
+        box and the mask head on proposal-target samples.  The proposals
+        are detached (``stop_gradient``) and joined by the gt boxes, so
+        positive ROIs exist from step 0.  ``draws`` (2, post_nms_proposals
+        + G) are the uniform draws ``proposal_targets`` samples with
+        (``jax.random.uniform(rng, (2, N))`` in the JAX package).
+
+        image (1, S, S, 3) float32 in [0, 255]; gt_boxes (G, 4) normalised;
+        gt_classes (G,) int; gt_valid (G,) bool; gt_masks (G, Hm, Wm)
+        float binary instance masks over the full image."""
+        cfg = self.cfg
+        feats = self.features(image)
+        rpn_logits, rpn_deltas = self.rpn(feats)
+        l_rpn = rpn_loss(rpn_logits[0], rpn_deltas[0], self.anchors,
+                         gt_boxes, gt_valid, cfg)
+        props, prop_valid = self._proposals(rpn_logits[0].detach(),
+                                            rpn_deltas[0].detach())
+        props = torch.cat([props, gt_boxes.to(props.dtype)])
+        prop_valid = torch.cat([prop_valid, gt_valid])
+        tgt = proposal_targets(draws, props, prop_valid, gt_boxes,
+                               gt_classes, gt_valid, gt_masks, cfg)
+        rois = roi_align(feats, tgt.rois, cfg.roi_pool_size, cfg)
+        cls_logits, box_deltas = self.box_head(rois)
+        l_cls, l_box = box_head_loss(cls_logits, box_deltas, tgt)
+        mask_rois = roi_align(feats, tgt.rois, cfg.mask_pool_size, cfg)
+        mask_logits = self.mask_head(mask_rois.permute(0, 3, 1, 2))
+        l_mask = mask_head_loss(mask_logits, tgt)
+        return {"rpn": l_rpn, "class": l_cls, "box": l_box, "mask": l_mask,
+                "total": l_rpn + l_cls + l_box + l_mask}
+
+
+# --------------------------------------------------------------------------
+# Training losses (model.py:489-657 of the JAX package)
+# --------------------------------------------------------------------------
+
+def rpn_targets(anchors, gt_boxes, gt_valid, cfg: MaskRCNNConfig):
+    """Per-anchor class target (1 positive, 0 negative, -1 ignored) and box
+    deltas.  Every valid gt's best anchor is positive.  The JAX package
+    writes that with a scatter (``labels.at[best_anchor].set``) in which a
+    padded gt's all-zero IoU column also names anchor 0, so anchor 0 can be
+    written twice with different values in an order XLA leaves open; here
+    the rule has no order: an anchor that is some valid gt's best is
+    positive."""
+    iou = torch.where(gt_valid[None, :], box_iou(anchors, gt_boxes), 0.0)
+    best_iou = iou.max(1).values
+    best_gt = torch.argmax(iou, 1)
+    labels = torch.full((anchors.shape[0],), -1, dtype=torch.long,
+                        device=anchors.device)
+    labels = torch.where(best_iou < cfg.rpn_negative_iou, 0, labels)
+    labels = torch.where(best_iou >= cfg.rpn_positive_iou, 1, labels)
+    forced = torch.zeros(anchors.shape[0], dtype=torch.int32,
+                         device=anchors.device)
+    forced.index_add_(0, torch.argmax(iou, 0), gt_valid.to(torch.int32))
+    labels = torch.where(forced > 0, 1, labels)
+    return labels, box_deltas_between(anchors, gt_boxes[best_gt], cfg)
+
+
+def rpn_loss(rpn_logits, rpn_deltas, anchors, gt_boxes, gt_valid,
+             cfg: MaskRCNNConfig):
+    """Cross-entropy over the labelled anchors plus L1 on the positives'
+    deltas, each a mean over its anchors."""
+    labels, target_deltas = rpn_targets(anchors, gt_boxes, gt_valid, cfg)
+    use = labels >= 0
+    ce = -torch.log_softmax(rpn_logits, -1).gather(
+        1, labels.clamp(min=0)[:, None])[:, 0]
+    cls_loss = torch.where(use, ce, 0.0).sum() / use.sum().clamp(min=1)
+    pos = labels == 1
+    l1 = torch.abs(rpn_deltas - target_deltas).sum(-1)
+    box_loss = torch.where(pos, l1, 0.0).sum() / pos.sum().clamp(min=1)
+    return cls_loss + box_loss
+
+
+def box_deltas_between(src, dst, cfg: MaskRCNNConfig):
+    """(dy, dx, log dh, log dw) refinement targets src -> dst, normalised by
+    BBOX_STD_DEV."""
+    sh = torch.clamp(src[:, 2] - src[:, 0], min=1e-6)
+    sw = torch.clamp(src[:, 3] - src[:, 1], min=1e-6)
+    dh = torch.clamp(dst[:, 2] - dst[:, 0], min=1e-6)
+    dw = torch.clamp(dst[:, 3] - dst[:, 1], min=1e-6)
+    # filled on the device: a copy from pageable host memory waits for the
+    # card
+    std = torch.stack([torch.full((), v, dtype=torch.float32,
+                                  device=src.device) for v in cfg.bbox_std])
+    return torch.stack([
+        ((dst[:, 0] + dh / 2) - (src[:, 0] + sh / 2)) / sh,
+        ((dst[:, 1] + dw / 2) - (src[:, 1] + sw / 2)) / sw,
+        torch.log(dh / sh), torch.log(dw / sw)], -1) / std
+
+
+def crop_masks_to_boxes(gt_masks, boxes, out_size: int):
+    """Bilinearly resample each instance mask (N, H, W) to its box's
+    out_size^2 grid (matterport DetectionTargetLayer's crop_and_resize, as
+    the JAX package samples it)."""
+    N, H, W = gt_masks.shape
+    ts = torch.arange(out_size, dtype=torch.float32,
+                      device=boxes.device) / (out_size - 1)
+    h = boxes[:, 2] - boxes[:, 0]
+    w = boxes[:, 3] - boxes[:, 1]
+    gy = (boxes[:, 0:1] + ts[None, :] * h[:, None]) * H - 0.5   # (N, S)
+    gx = (boxes[:, 1:2] + ts[None, :] * w[:, None]) * W - 0.5
+    y0f, x0f = torch.floor(gy), torch.floor(gx)
+    wy = (gy - y0f)[:, :, None]
+    wx = (gx - x0f)[:, None, :]
+    y0, x0 = y0f.long(), x0f.long()
+    flat = gt_masks.reshape(N, H * W)
+
+    def g(yi, xi):
+        yi = yi.clamp(0, H - 1)
+        xi = xi.clamp(0, W - 1)
+        idx = yi[:, :, None] * W + xi[:, None, :]           # (N, S, S)
+        return flat.gather(1, idx.reshape(N, -1)).reshape(N, out_size,
+                                                          out_size)
+
+    v00, v01 = g(y0, x0), g(y0, x0 + 1)
+    v10, v11 = g(y0 + 1, x0), g(y0 + 1, x0 + 1)
+    return (v00 * (1 - wy) * (1 - wx) + v01 * (1 - wy) * wx
+            + v10 * wy * (1 - wx) + v11 * wy * wx)
+
+
+class ProposalTargets(NamedTuple):
+    rois: torch.Tensor           # (T, 4) sampled training rois
+    target_class: torch.Tensor   # (T,) int64, 0 = background
+    target_deltas: torch.Tensor  # (T, 4) for the target class
+    target_masks: torch.Tensor   # (T, 2*mask_pool, 2*mask_pool) in [0, 1]
+    positive: torch.Tensor       # (T,) bool
+    valid: torch.Tensor          # (T,) bool (positive or sampled negative)
+
+
+def _top(scores, k: int):
+    """jax.lax.top_k's indices: the k largest, the lower index first among
+    equal scores (every non-candidate here is exactly -1)."""
+    return torch.sort(scores, descending=True, stable=True)[1][:k]
+
+
+def proposal_targets(draws, proposals, prop_valid, gt_boxes, gt_classes,
+                     gt_valid, gt_masks, cfg: MaskRCNNConfig
+                     ) -> ProposalTargets:
+    """Sample ``train_rois`` proposals into positives (IoU >= 0.5, share
+    ``roi_positive_ratio``) and negatives, with class, box and mask targets
+    (a static-shape DetectionTargetLayer).  ``draws`` (2, N) are the
+    uniform scores of the positive and the negative draw."""
+    T = cfg.train_rois
+    n_pos = int(round(T * cfg.roi_positive_ratio))
+    iou = torch.where(gt_valid[None, :] & prop_valid[:, None],
+                      box_iou(proposals, gt_boxes), 0.0)
+    best_iou = iou.max(1).values
+    best_gt = torch.argmax(iou, 1)
+    is_pos = prop_valid & (best_iou >= cfg.roi_positive_iou)
+    is_neg = prop_valid & (best_iou < cfg.roi_positive_iou)
+    pos_score = torch.where(is_pos, draws[0], -1.0)
+    pos_idx = _top(pos_score, n_pos)
+    pos_ok = pos_score[pos_idx] >= 0.0
+    neg_score = torch.where(is_neg, draws[1], -1.0)
+    neg_idx = _top(neg_score, T - n_pos)
+    neg_ok = neg_score[neg_idx] >= 0.0
+    sel = torch.cat([pos_idx, neg_idx])
+    positive = torch.cat([pos_ok, torch.zeros_like(neg_ok)])
+    valid = torch.cat([pos_ok, neg_ok])
+    rois = proposals[sel]
+    gt_idx = best_gt[sel]
+    tgt_cls = torch.where(positive, gt_classes.long()[gt_idx], 0)
+    return ProposalTargets(
+        rois, tgt_cls, box_deltas_between(rois, gt_boxes[gt_idx], cfg),
+        crop_masks_to_boxes(gt_masks[gt_idx], rois, cfg.mask_pool_size * 2),
+        positive, valid)
+
+
+def box_head_loss(cls_logits, box_deltas, tgt: ProposalTargets):
+    """Class cross-entropy over the sampled rois plus smooth L1 on the
+    positives' target-class deltas (mrcnn_class_loss, mrcnn_bbox_loss)."""
+    T = cls_logits.shape[0]
+    tc = tgt.target_class
+    ce = -torch.log_softmax(cls_logits, -1).gather(1, tc[:, None])[:, 0]
+    cls_loss = (torch.where(tgt.valid, ce, 0.0).sum()
+                / tgt.valid.sum().clamp(min=1))
+    sel = box_deltas[torch.arange(T, device=tc.device), tc]
+    diff = torch.abs(sel - tgt.target_deltas)
+    sl1 = torch.where(diff < 1.0, 0.5 * diff * diff, diff - 0.5).sum(-1)
+    box_loss = (torch.where(tgt.positive, sl1, 0.0).sum()
+                / tgt.positive.sum().clamp(min=1))
+    return cls_loss, box_loss
+
+
+def mask_head_loss(mask_logits, tgt: ProposalTargets):
+    """Per-pixel binary cross-entropy at the target class's channel
+    (mrcnn_mask_loss).  ``mask_logits`` (T, num_classes, H, W), the port's
+    mask head's NCHW output."""
+    T = mask_logits.shape[0]
+    tc = tgt.target_class
+    sel = mask_logits[torch.arange(T, device=tc.device), tc]
+    y = tgt.target_masks
+    bce = (torch.clamp(sel, min=0) - sel * y
+           + torch.log1p(torch.exp(-torch.abs(sel))))
+    per_roi = bce.mean((1, 2))
+    return (torch.where(tgt.positive, per_roi, 0.0).sum()
+            / tgt.positive.sum().clamp(min=1))
 
 
 def init_params_(model: MaskRCNN, seed: int = 0) -> MaskRCNN:

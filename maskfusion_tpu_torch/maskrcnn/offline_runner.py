@@ -14,9 +14,9 @@ Usage:
          [--params weights.npz]
 
 ``--params`` reads the JAX package's parameter tree pickled in an .npz
-(``params`` entry, as the JAX runner reads it) with numpy; a flax
-``.msgpack`` file needs flax and is refused.  OpenCV is needed for the PNG
-and JPEG files only.
+(``params`` entry, as the JAX runner reads it) with numpy, or a flax
+``.msgpack`` file with the port's own reader (no flax, no msgpack).
+OpenCV is needed for the PNG and JPEG files only.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ def main(argv=None, device=None):
     p.add_argument("--filter", default="",
                    help="comma-separated class ids to keep")
     p.add_argument("--viz", action="store_true")
-    p.add_argument("--params", help="npz checkpoint of weights")
+    p.add_argument("--params", help="npz/msgpack checkpoint of weights")
     args = p.parse_args(argv)
 
     import numpy as np
@@ -96,13 +96,14 @@ def write_png(path: str, image) -> None:
 
 
 def load_params(path: str):
-    """The parameter tree of an .npz (its pickled ``params`` entry)."""
+    """The parameter tree of a flax ``.msgpack`` file, or of an .npz (its
+    pickled ``params`` entry)."""
     import numpy as np
 
     if path.endswith(".msgpack"):
-        raise NotImplementedError(
-            ".msgpack parameters need flax; the port reads .npz "
-            "(ROADMAP queue 1 item 10, training slice)")
+        from maskfusion_tpu_torch.maskrcnn.checkpoint_io import load_msgpack
+
+        return load_msgpack(path)
     with np.load(path, allow_pickle=True) as z:
         return z["params"].item()
 

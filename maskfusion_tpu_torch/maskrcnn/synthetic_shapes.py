@@ -1,15 +1,16 @@
-"""Synthetic shapes domain for Mask R-CNN, the inference half.
+"""Synthetic shapes domain for Mask R-CNN: scenes, recipes, evaluations.
 
 Port of ``maskfusion_tpu/maskrcnn/synthetic_shapes.py``: the scene
 generators (numpy, the same arrays for the same generator), the two
-domains' configs and the held-out evaluations, which run the port's model
-(``MaskRCNN`` with the JAX package's parameter tree carried over by
-``convert.maskrcnn_state_dict``), on the first CUDA card unless
-``device="cpu"``.  The repository's two checkpoints were trained on these
-domains (``maskfusion_tpu/maskrcnn/checkpoints``).  Class ids: 1 =
-rectangle, 2 = disk (3 = triangle in the rich domain); 0 = background.
-The training recipes (``train_shapes``, ``train_rich``) come with the
-training slice.
+domains' configs, the training recipes behind the repository's two
+checkpoints (``train_shapes``, ``train_rich``; the checkpoints themselves
+are ``maskfusion_tpu/maskrcnn/checkpoints``) and the held-out evaluations.
+Recipes and evaluations run the port's model on the first CUDA card unless
+``device="cpu"``; both take and give the JAX package's parameter tree
+(``convert.maskrcnn_state_dict`` / ``maskrcnn_flax_tree``), so a tree
+trained here is what ``checkpoint_io.save_params`` writes and the JAX
+package loads.  Class ids: 1 = rectangle, 2 = disk (3 = triangle in the
+rich domain); 0 = background.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.utils.deterministic
 
 
 NUM_SHAPE_CLASSES = 3   # bg, rectangle, disk
@@ -63,6 +65,13 @@ def make_shapes_scene(
     return img, boxes, classes, valid, masks
 
 
+def make_batch(rng: np.random.Generator, batch: int, size: int,
+               max_objects: int = 2):
+    """Stacked batch of scenes (for the train step)."""
+    outs = [make_shapes_scene(rng, size, max_objects) for _ in range(batch)]
+    return tuple(np.stack([o[k] for o in outs]) for k in range(5))
+
+
 def box_iou_np(a: np.ndarray, b: np.ndarray) -> float:
     y1 = max(a[0], b[0]); x1 = max(a[1], b[1])
     y2 = min(a[2], b[2]); x2 = min(a[3], b[3])
@@ -83,7 +92,8 @@ def micro_config(image_size: int = 64):
         roi_pool_size=7, mask_pool_size=7,
         fpn_channels=32, box_head_dim=64, mask_head_channels=32,
         backbone_blocks=(1, 1, 1, 1),
-        score_threshold=0.0, dtype=torch.float32,
+        train_rois=16, roi_positive_ratio=0.5, score_threshold=0.0,
+        rpn_positive_iou=0.5, dtype=torch.float32,
     )
 
 
@@ -102,6 +112,77 @@ def forward_fn(cfg, params, device=None):
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     return fwd
+
+
+def train(cfg, scene, steps: int, seed: int, lr, clip_norm=None,
+          log_every: int = 0, device=None):
+    """The recipes' loop (synthetic_shapes.py:113-134, 318-340 of the JAX
+    package): a network initialised from ``seed``, one scene a step from
+    ``np.random.default_rng(seed)`` (``scene(rng)``), the proposal
+    sampling's draws of step i from a torch.Generator seeded with i, the
+    full loss, one Adam update (``optim.Optimizer(lr, clip_norm)``).
+    Returns (params, losses): the JAX parameter tree and each step's
+    total loss.  The losses are fetched at the end (and every
+    ``log_every`` steps when logging).
+
+    On a card the loop runs under torch's deterministic algorithms
+    (restored afterwards), so a seed gives the same network run after run,
+    as the JAX recipe does under XLA: otherwise the atomic adds of
+    ROIAlign's backward make each card run its own, and 700 steps from one
+    seed end anywhere in a spread as wide as the seeds'
+    (tests/torch_recipe_spread.py measures it).  The CPU's kernels are
+    deterministic already."""
+    from maskfusion_tpu_torch import resolve_device
+    from maskfusion_tpu_torch.convert import maskrcnn_flax_tree
+    from maskfusion_tpu_torch.maskrcnn.model import MaskRCNN, init_params_
+    from maskfusion_tpu_torch.maskrcnn.optim import Optimizer
+
+    dev = resolve_device(device, "synthetic_shapes.train")
+    model = init_params_(MaskRCNN(cfg), seed).to(dev)
+    if dev.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    opt = Optimizer(model.parameters(), lr, clip_norm)
+    rng = np.random.default_rng(seed)
+    losses = []
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.utils.deterministic.fill_uninitialized_memory)
+    if dev.type == "cuda":
+        # warn_only: cuBLAS is deterministic on one stream without the
+        # workspace setting that the strict mode asks for; no op here reads
+        # memory it did not write, so none is filled
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        for i in range(steps):
+            img, b, c, v, m = (torch.from_numpy(np.asarray(a)).to(dev)
+                               for a in scene(rng))
+            draws = torch.rand((2, cfg.post_nms_proposals + b.shape[0]),
+                               generator=torch.Generator().manual_seed(i))
+            loss = model.train_losses(img[None], b, c, v, m,
+                                      draws.to(dev))["total"]
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+            if log_every and (i + 1) % log_every == 0:
+                recent = torch.stack(losses[-log_every:]).mean().item()
+                print(f"step {i + 1}/{steps} loss {recent:.4f}", flush=True)
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        torch.utils.deterministic.fill_uninitialized_memory = was[2]
+    return (maskrcnn_flax_tree(model.state_dict(), cfg),
+            torch.stack(losses).cpu().tolist())
+
+
+def train_shapes(steps: int = 700, image_size: int = 64, seed: int = 0,
+                 lr: float = 1e-3, log_every: int = 0, device=None):
+    """Train the full loss stack (RPN + box + mask heads) on the shapes
+    domain with Adam at ``lr``; returns (params, losses).  The recipe
+    behind the repository's shapes checkpoint."""
+    return train(micro_config(image_size),
+                 lambda rng: make_shapes_scene(rng, image_size), steps,
+                 seed, lr, log_every=log_every, device=device)
 
 
 def eval_shapes_detection(params, image_size: int = 64, n_scenes: int = 12,
@@ -249,8 +330,23 @@ def rich_config(image_size: int = 256):
         roi_pool_size=7, mask_pool_size=14,
         fpn_channels=64, box_head_dim=256, mask_head_channels=64,
         backbone_blocks=(2, 2, 2, 2),
-        score_threshold=0.0, dtype=torch.float32,
+        train_rois=32, roi_positive_ratio=0.4, score_threshold=0.0,
+        rpn_positive_iou=0.6, dtype=torch.float32,
     )
+
+
+def train_rich(steps: int = 1500, image_size: int = 256, seed: int = 0,
+               lr: float = 1e-3, log_every: int = 0, warmup: int = 100,
+               device=None):
+    """Train the full loss stack on the rich domain: gradients clipped to a
+    global norm of 5, Adam over a ``warmup``-step linear warm-up then a
+    cosine decay (``optim.warmup_cosine``); returns (params, losses)."""
+    from maskfusion_tpu_torch.maskrcnn.optim import warmup_cosine
+
+    return train(rich_config(image_size),
+                 lambda rng: make_rich_scene(rng, image_size), steps, seed,
+                 warmup_cosine(lr, warmup, steps), clip_norm=5.0,
+                 log_every=log_every, device=device)
 
 
 def eval_rich_detection(params, image_size: int = 256, n_scenes: int = 10,

@@ -98,8 +98,9 @@ def test_cli_static_matches_jax(static_runs):
 
 
 def test_cli_unported_engine_options_raise(static_data):
-    """-rl, static or in the CLI's default pipelined schedule, and -method
-    cofusion raise in the engine, naming their ROADMAP items."""
+    """-rl, static or in the CLI's default pipelined schedule, raises in
+    the engine, naming its ROADMAP item; -method cofusion runs the log in
+    the synchronous frame and writes its poses."""
     base, data, cal = static_data
     common = ["-dir", str(data), "-q", "-cal", cal,
               "--global-capacity", str(1 << 16)]
@@ -107,8 +108,11 @@ def test_cli_unported_engine_options_raise(static_data):
         tmain([*common, "-static", "-rl"], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
         tmain([*common, "-rl"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        tmain([*common, "-method", "cofusion"], device="cpu")
+    out = base / "cofusion"
+    assert tmain([*common, "-method", "cofusion", "-exportdir", str(out),
+                  "-ep"], device="cpu") == 0
+    _, poses = chip_smoke.read_tum(out / "poses-0.txt")
+    assert len(poses) == 3 and np.isfinite(np.asarray(poses)).all()
 
 
 @pytest.mark.parametrize("flag,item", [

@@ -1,7 +1,8 @@
 """The port's synchronous multi-object frame: the scenarios of
 tests/test_engine_multimodel.py at their bounds, the configurations that
-raise until a later slice brings them, and a lockstep run against the JAX
-engine from a state carried across after the spawns.
+raise until a later slice brings them (and Co-Fusion, which runs), and a
+lockstep run against the JAX engine from a state carried across after the
+spawns.
 
 Lockstep bounds, per frame: the same model ids and class ids; the global
 pose to 1 mm and 0.05 deg (the static parity test's); each object's logged
@@ -263,23 +264,39 @@ def test_erase_error_geometry_matches_jax(spawned_pair):
                                atol=1e-6)
 
 
-# --------------------------------------------- not ported: must raise
-# the pipelined schedules run (tests/test_torch_pipelined*.py); with them,
-# Co-Fusion and redetection still raise
+# ------------------------------- not ported: must raise; Co-Fusion runs
+# the pipelined schedules run (tests/test_torch_pipelined*.py), and so does
+# Co-Fusion, with them or not (in the synchronous frame); redetection and
+# relocalisation still raise
 @pytest.mark.parametrize("overrides,res,match", [
     (dict(seg_method="cofusion", pipelined_multiobject=True), (160, 120),
-     "ROADMAP queue 1 item 11"),
+     None),
     (dict(seg_method="maskfusion", pipelined_multiobject=True,
           enable_redetection=True), (640, 480), "ROADMAP queue 1 item 12"),
-    (dict(seg_method="cofusion"), (160, 120), "ROADMAP"),
+    (dict(seg_method="cofusion"), (160, 120), None),
     (dict(enable_redetection=True), (160, 120), "ROADMAP"),
     (dict(relocalisation=True), (160, 120), "ROADMAP"),
 ], ids=["pipelined", "pipelined_vga", "cofusion", "redetection",
         "relocalisation"])
 def test_unported_configurations_raise(overrides, res, match):
-    with pytest.raises(NotImplementedError, match=match):
-        MaskFusion(Resolution(*res), tintr(syn.DEFAULT_INTR),
-                   Config(**{**BASE, **overrides}), device=CPU)
+    """A configuration not ported yet raises, naming its ROADMAP item; one
+    whose `match` is None runs two frames of tests/synthetic.py's scene
+    in the synchronous frame."""
+    cfg = Config(**{**BASE, **overrides})
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            MaskFusion(Resolution(*res), tintr(syn.DEFAULT_INTR), cfg,
+                       device=CPU)
+        return
+    eng = MaskFusion(Resolution(*res), tintr(syn.DEFAULT_INTR), cfg,
+                     device=CPU)
+    pts, cols = syn.make_scene()
+    rgb, depth = syn.render(pts, cols, np.eye(4), syn.DEFAULT_INTR)
+    for i in range(2):
+        out = eng.process_frame(FrameData(rgb=rgb, depth=depth,
+                                          timestamp=float(i)))
+    assert out["tracking_ok"] and out["model_ids"] == [0]
+    assert eng.last_segmentation.shape == (res[1], res[0])
 
 
 @pytest.mark.parametrize("argv", [

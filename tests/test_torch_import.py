@@ -1,6 +1,8 @@
 """The port stands alone: importing it (or chip_smoke.py) loads neither jax
-nor the JAX package, its -l path and its Mask R-CNN serving path need no
-OpenCV, and chip_smoke.py refuses to run without a card."""
+nor flax, optax, h5py, msgpack or the JAX package, its -l path, its Mask
+R-CNN serving path and its training step need no OpenCV (nor flax, optax,
+h5py or msgpack, which the card's machine lacks), and chip_smoke.py refuses
+to run without a card."""
 
 import json
 import os
@@ -16,10 +18,9 @@ ROOT = Path(__file__).resolve().parent.parent
 _CHECK = """
 import sys
 {imports}
-bad = [m for m in sys.modules
-       if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-       or m.startswith("jaxlib.") or m == "maskfusion_tpu"
-       or m.startswith("maskfusion_tpu.")]
+bad = [m for m, mod in list(sys.modules.items())
+       if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "maskfusion_tpu", "flax",
+                              "optax", "h5py", "msgpack")]
 print(",".join(bad))
 """
 
@@ -51,13 +52,22 @@ import maskfusion_tpu_torch.maskrcnn.resize
 import maskfusion_tpu_torch.maskrcnn.inference
 import maskfusion_tpu_torch.maskrcnn.synthetic_shapes
 import maskfusion_tpu_torch.maskrcnn.offline_runner
+import maskfusion_tpu_torch.maskrcnn.optim
+import maskfusion_tpu_torch.maskrcnn.convert
+import maskfusion_tpu_torch.maskrcnn.train_checkpoint
+import maskfusion_tpu_torch.parallel
+import maskfusion_tpu_torch.parallel.train
+import maskfusion_tpu_torch.ops.slic
+import maskfusion_tpu_torch.segmentation.cf_segmentation
 """
 
 # the -l path needs no OpenCV (the card's machine has none): with cv2
 # unimportable, the CLI and the KLG reader import, and a raw log is written
-# and read back
+# and read back; with flax, optax, h5py and msgpack unimportable too, the
+# serving path runs, a train step runs and a checkpoint is written
 WITHOUT_CV2 = """
-sys.modules["cv2"] = None
+for name in ("cv2", "flax", "optax", "h5py", "msgpack"):
+    sys.modules[name] = None
 import tempfile, os
 import numpy as np
 import maskfusion_tpu_torch.main
@@ -77,6 +87,19 @@ net = inference.MaskRCNNInference(synthetic_shapes.micro_config(64),
                                   device="cpu")
 net.execute(f)
 assert f.mask.shape == (12, 16) and f.class_ids[0] == 0
+# one training step and its checkpoint
+from maskfusion_tpu_torch.maskrcnn import checkpoint_io
+from maskfusion_tpu_torch.parallel.train import create_train_step
+cfg = synthetic_shapes.micro_config(64)
+init_fn, step_fn = create_train_step(cfg, device="cpu")
+state = init_fn(0, 1)
+batch = [torch.from_numpy(a) for a in
+         synthetic_shapes.make_batch(np.random.default_rng(0), 1, 64)]
+state, loss = step_fn(state, torch.Generator().manual_seed(0), *batch)
+assert torch.isfinite(loss)
+from maskfusion_tpu_torch.convert import maskrcnn_flax_tree
+checkpoint_io.save_params(os.path.join(tempfile.mkdtemp(), "c.npz"),
+                          maskrcnn_flax_tree(state.params.state_dict(), cfg))
 """
 
 

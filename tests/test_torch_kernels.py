@@ -747,3 +747,91 @@ def test_nms_tie_order_on_card(cuda_device):
     scores = torch.softmax(logits, -1)[:, 1]
     assert chip_smoke.tie_order(scores, cfg, cuda_device) < \
         cfg.pre_nms_limit // 2                               # ties
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_never_waits_on_the_card(cuda_device, dtype):
+    """create_train_step on micro_config(64) (in float32, and computing in
+    bfloat16 over float32 parameters), a batch of two make_batch scenes
+    already on the card and a CUDA generator: after the first step, a
+    full-loss step issues no synchronising call (none under
+    torch.cuda.set_sync_debug_mode("error"), none in the profiler's view),
+    and its loss, read afterwards, is finite; the parameters stay float32."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from maskfusion_tpu_torch.maskrcnn import synthetic_shapes as ss
+    from maskfusion_tpu_torch.parallel.train import create_train_step
+
+    cfg = ss.micro_config(64)
+    if dtype == "bfloat16":
+        import dataclasses
+        cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    init_fn, step_fn = create_train_step(cfg, 1e-3, device=cuda_device)
+    state = init_fn(0, 2)
+    batch = [torch.from_numpy(a).to(cuda_device) for a in
+             ss.make_batch(np.random.default_rng(0), 2, 64)]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    state, loss = step_fn(state, gen, *batch)
+    torch.cuda.synchronize()
+    losses = []
+    for _ in range(2):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                state, loss = step_fn(state, gen, *batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        waits = [e.name for e in prof.events() if e.name in (
+            "cudaStreamSynchronize", "cudaDeviceSynchronize",
+            "cudaEventSynchronize")]
+        assert waits == []
+        losses.append(loss)
+    assert torch.isfinite(torch.stack(losses)).all()
+    assert state.step == 3
+    assert all(p.dtype == torch.float32 for p in state.params.parameters())
+
+
+@pytest.mark.cuda
+def test_cofusion_frames_on_the_card(cuda_device):
+    """-method cofusion on the 160x120 two-object scene without masks on
+    the card, under the Config default pipelined_multiobject: every frame
+    runs the synchronous step (the pipelined one needs the edge map, which
+    Co-Fusion never launches), the bilateral filter launches once a frame
+    and the scan at least once; a frame's synchronises are counted
+    (profiler: cudaStreamSynchronize, cudaDeviceSynchronize,
+    cudaEventSynchronize) and reported, not bounded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from maskfusion_tpu_torch.camera import CameraIntrinsics, Resolution
+    from maskfusion_tpu_torch.config import Config
+    from maskfusion_tpu_torch.engine import MaskFusion
+    from maskfusion_tpu_torch.frame import FrameData
+
+    fx, fy, cx, cy, w, h = chip_smoke.SMALL
+    eng = MaskFusion(Resolution(w, h), CameraIntrinsics(fx, fy, cx, cy),
+                     Config(global_surfel_capacity=1 << 16,
+                            object_surfel_capacity=1 << 13,
+                            seg_method="cofusion", model_spawn_offset=0),
+                     device=cuda_device)
+    assert eng.cfg.pipelined_multiobject
+    syncs = []
+    for i, (rgb, depth, _) in enumerate(chip_smoke.synthetic_two_objects(7)):
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = eng.process_frame(FrameData(rgb=rgb, depth=depth,
+                                              timestamp=float(i)))
+        assert not eng._pending
+        assert kernels.geometric_edge_map.launches == 0
+        assert kernels.bilateral_depth.launches == 1
+        if i:
+            assert kernels.predict_l0_scan.launches >= 1
+            assert eng.last_segmentation.shape == (h, w)
+            syncs.append(sum(e.name in ("cudaStreamSynchronize",
+                                        "cudaDeviceSynchronize",
+                                        "cudaEventSynchronize")
+                             for e in prof.events()))
+        assert out["tracking_ok"]
+    print(f"Co-Fusion synchronises per frame: {syncs}")
+    assert all(s > 0 for s in syncs)
+    assert np.isfinite(eng.pose_log_numpy(0)[-1]).all()

@@ -22,6 +22,7 @@ from maskfusion_tpu_torch.engine import MaskFusion
 from maskfusion_tpu_torch.frame import FrameData
 from maskfusion_tpu_torch.maskrcnn import checkpoint_io as tio
 from maskfusion_tpu_torch.maskrcnn import inference as tinf
+from maskfusion_tpu_torch.maskrcnn import model as tm
 from maskfusion_tpu_torch.maskrcnn import synthetic_shapes as tss
 from maskfusion_tpu_torch.maskrcnn.resize import (resize_mask_f32,
                                                   resize_rgb_u8)
@@ -242,8 +243,8 @@ def test_offline_runner_writes_mask_files(tmp_path):
     """The -i/-o entry point on two colour images with the full-width
     network (seeded random weights, score threshold 0 so that detections
     exist): one Mask####.png (uint8 id image of the input's size) and one
-    .txt (class ids, then one ROI a line) per image; a .msgpack checkpoint
-    is refused."""
+    .txt (class ids, then one ROI a line) per image; the same weights
+    written by flax as a .msgpack checkpoint give the same files."""
     cv2 = pytest.importorskip("cv2")
     from maskfusion_tpu_torch.maskrcnn import offline_runner
 
@@ -265,6 +266,19 @@ def test_offline_runner_writes_mask_files(tmp_path):
         for line in lines[1:]:
             y1, x1, y2, x2 = map(int, line.split())
             assert 0 <= y1 < y2 <= 60 and 0 <= x1 < x2 <= 80
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        offline_runner.main(["-i", str(src), "-o", str(out), "--params",
-                             "weights.msgpack"], device="cpu")
+    from flax import serialization
+
+    from maskfusion_tpu_torch.convert import maskrcnn_flax_tree
+
+    cfg = tm.MaskRCNNConfig()
+    tree = maskrcnn_flax_tree(
+        tm.init_params_(tm.MaskRCNN(cfg), 0).state_dict(), cfg)
+    weights = tmp_path / "weights.msgpack"
+    weights.write_bytes(serialization.msgpack_serialize(tree))
+    out2 = tmp_path / "out2"
+    assert offline_runner.main(["-i", str(src), "-o", str(out2),
+                                "--threshold", "0.0", "--params",
+                                str(weights)], device="cpu") == 0
+    for name in ("Mask0003.png", "Mask0003.png.txt", "Mask0004.png",
+                 "Mask0004.png.txt"):
+        assert (out2 / name).read_bytes() == (out / name).read_bytes()

@@ -10,6 +10,7 @@ rules, scipy components) and ask for the same segmentation exactly
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import torch
 
 from maskfusion_tpu.camera import Resolution as JResolution
 from maskfusion_tpu.config import Config as JConfig
@@ -23,6 +24,7 @@ from maskfusion_tpu_torch.camera import CameraIntrinsics, Resolution
 from maskfusion_tpu_torch.config import Config
 from maskfusion_tpu_torch.frame import FrameData
 from maskfusion_tpu_torch.segmentation import create_segmenter
+from maskfusion_tpu_torch.segmentation.cf_segmentation import CfSegmentation
 from maskfusion_tpu_torch.segmentation.mf_segmentation import (
     MfSegmentation, ModelInfo)
 from maskfusion_tpu_torch.segmentation.pre_segmentation import (
@@ -197,7 +199,9 @@ def test_create_segmenter():
                       MfSegmentation)
     assert isinstance(create_segmenter("precomputed", cfg, res, intr),
                       PreSegmentation)
-    with pytest.raises(NotImplementedError, match="cofusion"):
-        create_segmenter("cofusion", cfg, res, intr)
+    seg = create_segmenter("cofusion", cfg, res, intr, device="cpu")
+    assert isinstance(seg, CfSegmentation) and seg.wants_model_views
+    assert seg.device == torch.device("cpu")
+    assert not hasattr(seg, "edge_binary")   # no pipelined schedule
     with pytest.raises(ValueError):
         create_segmenter("nonsense", cfg, res, intr)
