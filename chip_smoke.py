@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--vga-sequence]
 
 Phases (each prints a progress line first, so a cut run shows where it
 stopped; any failure raises and exits non-zero):
@@ -107,7 +107,29 @@ stopped; any failure raises and exits non-zero):
      launches: no edge map; synchronises a frame); on the 160x120
      two-object scene card against CPU from a carried state (model ids,
      poses); through the CLI on a raw KLG log of phase 8's first 12
-     frames.
+     frames;
+ 13a. the deformation graph at the CLI's default map size (9,437,184 slots,
+     9,000,000 live surfels on the card): optimise() at 1024 nodes and
+     which solver ran, apply_to_map_device over the whole map and
+     apply_to_points on 100,000 points, timed; the device blend within
+     1e-5 of the host blend on 100,000 rows, the dead rows bit-equal;
+ 13b. relocalisation at 640x480: the -static engine with ferns (the
+     synchronous step) gets lost on blind frames and recovers the revisit
+     within 2 cm, with its frame's launches and synchronises; then phase
+     6's multi-object engine with relocalisation and loop closure (the
+     synchronous frame): FPS, launches and synchronises a frame beside
+     phase 6's, each kernel launching;
+ 13c. the 160x120 relocalisation scenario on the card and the CPU: the
+     same lost / recovery verdicts and fern frames, poses within 1 mm /
+     0.05 deg;
+ 13d. `-static -rl` through the CLI on phase 8's log, then the same run
+     saved half way (--save-state) and resumed (--load-state): the resumed
+     poses within 1e-5 m of the uninterrupted run's;
+ 14. with --vga-sequence only (about 110 s more): the sequence-level check
+     at 640x480, make_sequence's 200 frames through the CLI with -method
+     precomputed as scripts/parity_vga.py runs it: camera ATE-RMSE, object
+     displacement RMSE and instance IoU, held within 2x of the JAX
+     package's (PARITY.md).
 The last lines are the four bench lines, the card's nvidia-smi line, one
 JSON line of kernel records, and {"ok": true, "device": {...}}.
 
@@ -2228,6 +2250,650 @@ def phase_cli_cofusion(kernels, frames, workdir: Path):
     return {"frames": n, "seconds": seconds, "launches": launches,
             "fps": fps, "poses": len(poses)}
 
+# ------------------------------------------------------ relocalisation
+DEFORM_CAPACITY = 9437184    # the CLI's default global capacity
+DEFORM_LIVE = 9_000_000      # live surfels in phase 13a's map
+DEFORM_SAMPLE = 100_000      # rows held against the host blend
+
+
+def phase_deformation(dev) -> dict:
+    """13a: the deformation graph on the card at the CLI's default map
+    size.  A 9,437,184-slot map holding 9,000,000 live surfels (seeded
+    uniform positions in a 4 m cube, unit normals, 40,000 surfels a frame's
+    init time; the dead rows hold values too) on the card; 1024 nodes
+    sampled as the engine samples them (_apply_loop_closure: init-time
+    order, systematic stride); 8 constraints moving live surfels by a
+    rigid 4 mm shift (a closure the graph accepts, as
+    tests/test_torch_reloc_engine.py's accepted case).  Timed: optimise()
+    on two fresh graphs (the second with the native library warm) and
+    which solver ran; apply_to_map_device over the whole map (cold and
+    again); apply_to_points on 100,000 points (host in, host out).  Held:
+    the acceptance gate passes; the map's blend on a 100,000-row sample of
+    live rows within 1e-5 of the host blend (_apply_points_host); the dead
+    rows bit-equal; apply_to_points within 1e-5 of the host blend."""
+    import torch
+
+    from maskfusion_tpu_torch.reloc.deformation import DeformationGraph
+
+    cap, n = DEFORM_CAPACITY, DEFORM_LIVE
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pos = torch.rand((cap, 3), generator=gen, device=dev) * 4.0 - 2.0
+    normal = torch.nn.functional.normalize(
+        torch.randn((cap, 3), generator=gen, device=dev), dim=1)
+    init_time = (torch.arange(cap, device=dev) // 40000 + 1).float()
+    times = init_time[:n].cpu().numpy()
+    order = np.argsort(times)
+    step = max(1, n // 1024)
+    idx = order[::step][:1024]
+    node_pos = pos[torch.from_numpy(idx).to(dev)].cpu().numpy()
+    rng = np.random.default_rng(0)
+    src = pos[torch.from_numpy(rng.integers(0, n, 8)).to(dev)].cpu().numpy()
+    dst = src + np.array([0.004, -0.002, 0.0])
+
+    def graph():
+        g = DeformationGraph(node_pos, times[idx], device=dev)
+        for a, b in zip(src, dst):
+            g.add_constraint(a, b)
+        return g
+
+    opt_ms = []
+    for _ in range(2):
+        g = graph()
+        t0 = time.perf_counter()
+        total, mean_cons = g.optimise()
+        opt_ms.append((time.perf_counter() - t0) * 1e3)
+    accepted = bool(mean_cons < 0.0003 and total < 0.12)
+    log(f"  optimise() at {g.n} nodes, {len(src)} constraints: "
+        f"{opt_ms[0]:.1f} ms, then {opt_ms[1]:.1f} ms on a fresh graph "
+        f"(solver {g.last_solver}; target < 50 ms with the native "
+        f"solve); total {total:.3e}, mean constraint error "
+        f"{mean_cons:.3e}, accepted {accepted}")
+    if not accepted:
+        raise AssertionError(f"the graph rejected a rigid 4 mm closure: "
+                             f"total {total}, mean {mean_cons}")
+    sample = torch.from_numpy(np.sort(rng.choice(n, DEFORM_SAMPLE,
+                                                 replace=False))).to(dev)
+    s_pos = pos[sample].cpu().numpy().astype(np.float64)
+    s_nrm = normal[sample].cpu().numpy().astype(np.float64)
+    dead_pos, dead_nrm = pos[n:].clone(), normal[n:].clone()
+    torch.cuda.synchronize()
+    apply_ms = []
+    for k in range(2):
+        t0 = time.perf_counter()
+        g.apply_to_map_device(pos, normal, n)
+        torch.cuda.synchronize()
+        apply_ms.append((time.perf_counter() - t0) * 1e3)
+        if k == 0:
+            ref_p, ref_n = g._apply_points_host(s_pos, s_nrm)
+            err_p = float(np.abs(pos[sample].cpu().numpy() - ref_p).max())
+            err_n = float(np.abs(normal[sample].cpu().numpy()
+                                 - ref_n).max())
+            dead_equal = bool(torch.equal(pos[n:], dead_pos)
+                              and torch.equal(normal[n:], dead_nrm))
+    t0 = time.perf_counter()
+    out_p, out_n = g.apply_to_points(s_pos, s_nrm)
+    points_ms = (time.perf_counter() - t0) * 1e3
+    err_pts = float(max(np.abs(out_p - ref_p).max(),
+                        np.abs(out_n - ref_n).max()))
+    log(f"  apply_to_map_device over {n} live of {cap} slots: "
+        f"{apply_ms[0]:.1f} ms, again {apply_ms[1]:.1f} ms; against the "
+        f"host blend on {DEFORM_SAMPLE} rows: positions {err_p:.2e}, "
+        f"normals {err_n:.2e}; dead rows bit-equal {dead_equal}")
+    log(f"  apply_to_points on {DEFORM_SAMPLE} points: {points_ms:.1f} ms "
+        f"(target < 1 s), {err_pts:.2e} from the host blend")
+    if not (err_p <= 1e-5 and err_n <= 1e-5 and err_pts <= 1e-5):
+        raise AssertionError(f"the device blend differs from the host "
+                             f"blend: {err_p}, {err_n}, {err_pts}")
+    if not dead_equal:
+        raise AssertionError("apply_to_map_device changed a dead row")
+    return {"nodes": g.n, "constraints": len(src), "solver": g.last_solver,
+            "optimise_ms": opt_ms, "total": total, "mean_cons": mean_cons,
+            "accepted": accepted, "apply_to_map_ms": apply_ms,
+            "live": n, "capacity": cap, "apply_to_points_ms": points_ms,
+            "max_abs_err": {"map_pos": err_p, "map_normal": err_n,
+                            "points": err_pts},
+            "dead_rows_equal": dead_equal}
+
+
+def reloc_scenario(eng, good, blind, n_good: int = 2,
+                   max_blind: int = 20):
+    """tests/test_reloc.py's relocalisation scenario on `eng`: `n_good`
+    good frames, blind frames until the engine is lost (at most
+    `max_blind`), then the good view again past the fern time gap (tick
+    400) and once more.  Returns the per-frame (lost, last_frame_recovery,
+    pose) and the number of fern frames after the good frames."""
+    trace = []
+
+    def run(frame, ts):
+        eng.process_frame(dataclasses.replace(frame, timestamp=ts))
+        trace.append((eng.lost, eng.last_frame_recovery,
+                      eng.current_pose.astype(np.float64)))
+
+    for i in range(n_good):
+        run(good, float(i))
+    n_ferns = len(eng.ferns.frames)
+    for i in range(max_blind):
+        run(blind, float(n_good + i))
+        if eng.lost:
+            break
+    eng.tick = 400
+    run(good, 400.0)
+    run(good, 401.0)
+    return trace, n_ferns
+
+
+def check_recovery(trace, name: str) -> float:
+    """The scenario's verdict: lost after the blind frames, recovered
+    (last_frame_recovery) at the revisit within 2 cm of the first frame's
+    pose, and no longer lost on the next frame.  Returns the recovery's
+    translation error."""
+    lost_at = next((i for i, t in enumerate(trace) if t[0]), None)
+    err = float(np.linalg.norm(trace[-2][2][:3, 3] - trace[0][2][:3, 3]))
+    log(f"  {name}: lost at frame {lost_at}, recovery at the revisit "
+        f"{trace[-2][1]}, {err * 1e3:.3f} mm from the first frame's pose, "
+        f"lost on the next frame {trace[-1][0]}")
+    if lost_at is None or not trace[-2][1] or trace[-1][0]:
+        raise AssertionError(f"{name}: the engine did not get lost and "
+                             "recover: " + str([t[:2] for t in trace]))
+    if not err < 0.02:
+        raise AssertionError(f"{name}: recovery {err} m from the truth")
+    return err
+
+
+def phase_reloc_vga(dev, kernels, MaskFusion, Config, Resolution,
+                    CameraIntrinsics, FrameData, frames, mo_frames, intr,
+                    mo_run) -> dict:
+    """13b: relocalisation at 640x480 on the card.  The -static engine with
+    relocalisation and loop closure (every frame the synchronous step) on
+    phase 3's first frame: 2 good frames, then 3 more profiled (launches
+    and synchronises a frame), blind frames (no colour, no depth) until
+    lost, the revisit at tick 400 recovered within 2 cm and lost cleared
+    on the next frame.  Then the multi-object engine of phase 6 with
+    relocalisation and loop closure (the JAX gate: the synchronous frame)
+    on phase 6's frames: 14 warm-up and 8 timed frames, FPS, the three
+    kernels' launches over this path (each must launch), a profile of 2
+    frames: launches and synchronises a frame, beside phase 6's."""
+    import torch
+
+    W, H = 640, 480
+    good = frames[0]
+    blind = FrameData(rgb=np.zeros((H, W, 3), np.uint8),
+                      depth=np.zeros((H, W), np.float32))
+    cfg = Config(static_mode=True, global_surfel_capacity=1 << 22,
+                 relocalisation=True, close_loops=True)
+    eng = MaskFusion(Resolution(W, H),
+                     CameraIntrinsics(528.0, 528.0, 320.0, 240.0), cfg,
+                     device=dev)
+    kernels.reset_launch_counts()
+    for i in range(2):
+        eng.process_frame(dataclasses.replace(good, timestamp=float(i)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(3):
+        eng.process_frame(dataclasses.replace(good, timestamp=2.0 + i))
+    torch.cuda.synchronize()
+    static_ms = (time.perf_counter() - t0) * 1e3 / 3
+    static_prof = profile_frames(
+        eng, [dataclasses.replace(good, timestamp=5.0 + i)
+              for i in range(2)], static_ms)
+    trace, n_ferns = reloc_scenario(eng, good, blind, n_good=1)
+    static_launches = {k: getattr(kernels, k).launches for k in
+                       ("bilateral_depth", "predict_l0_scan",
+                        "geometric_edge_map")}
+    err = check_recovery(trace, "-static with ferns at 640x480")
+    log(f"  -static frame with ferns: {static_ms:.1f} ms a frame, fern "
+        f"frames {len(eng.ferns.frames)}, launches over the run "
+        f"{static_launches}")
+
+    n_warm, n_timed = 14, 8
+    mcfg = dataclasses.replace(vga_multiobject_config(),
+                               relocalisation=True, close_loops=True)
+    meng = MaskFusion(Resolution(W, H), CameraIntrinsics(*intr), mcfg,
+                      device=dev)
+    kernels.reset_launch_counts()
+    n_models = []
+    for f in mo_frames[:n_warm]:
+        out = meng.process_frame(f)
+        n_models.append(len(meng.models))
+        if out.get("pipelined"):
+            raise AssertionError("a frame with ferns ran pipelined")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in mo_frames[n_warm:n_warm + n_timed]:
+        meng.process_frame(f)
+        n_models.append(len(meng.models))
+    torch.cuda.synchronize()
+    fps = n_timed / (time.perf_counter() - t0)
+    launches = {k: getattr(kernels, k).launches for k in
+                ("bilateral_depth", "predict_l0_scan", "geometric_edge_map")}
+    prof = profile_frames(meng, mo_frames[n_warm + n_timed:
+                                          n_warm + n_timed + 2],
+                          1000.0 / fps)
+    key = "cudaLaunchKernel"
+    log(f"  multi-object with ferns at 640x480: {fps:.2f} FPS over "
+        f"{n_timed} frames (phase 6, no ferns: {mo_run['fps']:.2f}); "
+        f"models {n_models}; fern frames {len(meng.ferns.frames)}; "
+        f"launches over {n_warm + n_timed} frames {launches}; a frame: "
+        f"{prof['runtime_calls_per_frame'].get(key, 0.0):.1f} launches, "
+        f"{prof['synchronises_per_frame']:.1f} synchronises (phase 6: "
+        f"{mo_run['profile']['runtime_calls_per_frame'].get(key, 0.0):.1f}"
+        f", {mo_run['profile']['synchronises_per_frame']:.1f})")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel never launched on the -rl "
+                             f"multi-object path: {launches}")
+    if max(n_models) < 3:
+        raise AssertionError(f"the -rl run never held 3 models: {n_models}")
+    return {"static": {"ms_per_frame": static_ms, "profile": static_prof,
+                       "launches": static_launches,
+                       "recovery_err_m": err, "fern_frames": n_ferns,
+                       "lost_trace": [t[:2] for t in trace]},
+            "multiobject": {"fps": fps, "frames_timed": n_timed,
+                            "launches": launches, "n_models": n_models,
+                            "fern_frames": len(meng.ferns.frames),
+                            "profile": prof}}
+
+
+def phase_reloc_parity(dev, MaskFusion, Config, Resolution,
+                       CameraIntrinsics, FrameData) -> dict:
+    """13c: the 160x120 relocalisation scenario (tests/test_reloc.py's:
+    the wavy scene at the identity, 2 good frames, blind frames until
+    lost, the revisit) on the card and on the CPU.  Held: the same lost /
+    recovery verdict on every frame, poses within phase 4's bounds (1 mm,
+    0.05 deg), the same fern frames kept (ids and times)."""
+    import torch
+
+    from maskfusion_tpu_torch.bench import render_points
+
+    fx, fy, cx, cy, w, h = SMALL
+    pts, cols = wavy_scene()
+    rgb, depth = render_points(pts, cols, np.eye(4), *SMALL)
+    good = FrameData(rgb=rgb, depth=depth)
+    blind = FrameData(rgb=np.zeros_like(rgb), depth=np.zeros_like(depth))
+    cfg = Config(global_surfel_capacity=1 << 16, static_mode=True,
+                 use_so3=False, relocalisation=True, close_loops=True)
+    runs = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        eng = MaskFusion(Resolution(w, h), CameraIntrinsics(fx, fy, cx, cy),
+                         cfg, device=device)
+        trace, _ = reloc_scenario(eng, good, blind)
+        runs[name] = (trace, [(f.frame_id, f.src_time)
+                              for f in eng.ferns.frames])
+    (tc, fc), (tp, fp) = runs["card"], runs["cpu"]
+    err = check_recovery(tc, "card at 160x120")
+    dpos = max(np.linalg.norm(a[2][:3, 3] - b[2][:3, 3])
+               for a, b in zip(tc, tp))
+    drot = max(_rot_deg(a[2], b[2]) for a, b in zip(tc, tp))
+    same = [a[:2] for a in tc] == [b[:2] for b in tp]
+    log(f"  card vs CPU over {len(tc)} frames: the same lost/recovery "
+        f"trace {same}; max pose difference {dpos * 1e3:.4f} mm, "
+        f"{drot:.5f} deg; fern frames {fc} (CPU {fp})")
+    if not (same and fc == fp and dpos <= 1e-3 and drot <= 0.05):
+        raise AssertionError(f"card and CPU relocalisation differ: trace "
+                             f"{same}, ferns {fc} / {fp}, {dpos} m, "
+                             f"{drot} deg")
+    return {"frames": len(tc), "max_pose_diff_m": dpos,
+            "max_rot_diff_deg": drot, "recovery_err_m": err,
+            "fern_frames": fc}
+
+
+def phase_cli_reloc(kernels, frames, workdir: Path) -> dict:
+    """13d: the CLI with -rl on phase 8's raw KLG log: `-static -rl` over
+    every frame (one bilateral and one scan launch a frame, every pose
+    finite); then the same run cut in two, `--save-state` after the first
+    half (-e) and `--load-state` for the rest (-s): the resumed run's TUM
+    poses match the uninterrupted run's within 1e-5 m."""
+    n = len(frames)
+    k = n // 2
+    ckpt = workdir / "rl_state"
+    rc, _, seconds, launches, processed, fps, export = run_cli_log(
+        kernels, frames, workdir, "rl", ["-static", "-rl"])
+    if rc != 0 or processed != n:
+        raise AssertionError(f"-static -rl: rc {rc}, {processed} of {n} "
+                             "frames")
+    if launches["bilateral_depth"] != n or launches["predict_l0_scan"] < n:
+        raise AssertionError(f"-static -rl launched {launches} in {n} "
+                             "frames")
+    stamps, poses = read_tum(export / "poses-0.txt")
+    if len(poses) != n or not np.isfinite(np.asarray(poses)).all():
+        raise AssertionError(f"-static -rl: {len(poses)} poses for {n} "
+                             "frames, or non-finite ones")
+    rc1, _, s1, _, p1, _, _ = run_cli_log(
+        kernels, frames, workdir, "rl_first",
+        ["-static", "-rl", "-e", str(k), "--save-state", str(ckpt)])
+    rc2, _, s2, _, p2, _, export2 = run_cli_log(
+        kernels, frames, workdir, "rl_rest",
+        ["-static", "-rl", "-s", str(k), "--load-state", str(ckpt)])
+    if (rc1, rc2, p1, p2) != (0, 0, k, n - k):
+        raise AssertionError(f"save/load runs: rc {rc1} {rc2}, frames "
+                             f"{p1} {p2} (expected {k} {n - k})")
+    stamps2, poses2 = read_tum(export2 / "poses-0.txt")
+    err = max(float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
+              for a, b in zip(poses2, poses))
+    log(f"  -static -rl: {n} frames in {seconds:.2f} s ({fps:.2f} FPS), "
+        f"launches {launches}; saved after {k} frames ({s1:.2f} s), "
+        f"resumed for {n - k} ({s2:.2f} s): {len(poses2)} poses, max "
+        f"{err:.2e} m from the uninterrupted run")
+    if stamps2 != stamps or not err <= 1e-5:
+        raise AssertionError(f"the resumed run's poses differ from the "
+                             f"uninterrupted run's by {err} m")
+    return {"frames": n, "seconds": seconds, "fps": fps,
+            "launches": launches, "resumed_max_pose_diff_m": err,
+            "split_at": k}
+
+
+CLOSURE_SHIFT = np.array([0.004, -0.002, 0.0])   # phase 13e's closure
+
+
+def one_object_scene():
+    """tests/synthetic.make_scene_with_object (no offset): the wavy scene
+    and a textured curved patch at z ~1.5 m, label 1 on the patch."""
+    pts_bg, cols_bg = wavy_scene()
+    x = np.linspace(-0.28, 0.28, 320)
+    y = np.linspace(-0.21, 0.21, 240)
+    X, Y = np.meshgrid(x, y)
+    Z = 1.5 + 0.10 * np.sin(4.5 * X) + 0.08 * np.cos(5.5 * Y)
+    pts = np.stack([X + 0.1, Y - 0.05, Z], -1).reshape(-1, 3).astype(
+        np.float32)
+    r = 127.5 + 110 * np.sin(17 * X)
+    g = 127.5 + 110 * np.cos(13 * Y)
+    cols = np.stack([r, g, np.full_like(r, 60.0)], -1).reshape(-1, 3)
+    labels = np.concatenate([np.zeros(len(pts_bg), np.uint8),
+                             np.ones(len(pts), np.uint8)])
+    return (np.concatenate([pts_bg, pts]),
+            np.concatenate([cols_bg, cols.clip(0, 255).astype(np.uint8)]),
+            labels)
+
+
+def phase_closure_parity(dev, MaskFusion, Config, Resolution,
+                         CameraIntrinsics, FrameData) -> dict:
+    """13e, first half: an accepted loop closure through the engine, card
+    against CPU at 160x120.  The CPU -static engine with ferns runs 4
+    frames of the wavy scene from a camera sliding 1 cm a frame along +x
+    (tests/test_torch_reloc_engine.py's closure engine); its state is
+    carried to a card engine and to a second CPU engine.  On each, frame 3
+    is seen again and its fern search returns one FindResult: 40 map
+    surfels led by a rigid 4 mm shift, the pose the camera's shifted as
+    much.  It runs _relocalise's closure branch: the graph's optimise and
+    gate, apply_to_map_device on the live map, apply_to_pose on every fern
+    frame, the camera pose override; then frame 4 tracks from the deformed
+    map.  Held: both accept; the deformed maps within 1e-5 on live rows and
+    bit-equal to the carried map on dead ones, live surfels moved by about
+    the shift; the fern poses within 1e-5 of each other and moved by the
+    shift within half its length (a camera 2 m from the graph's nodes
+    takes their blend, not the shift alone); the closure frame's pose is the FindResult's; frame 4's poses
+    within phase 4's bounds (1 mm, 0.05 deg) and within 1 cm of the
+    shifted truth."""
+    import torch
+
+    from maskfusion_tpu_torch.bench import render_points
+    from maskfusion_tpu_torch.convert import engine_snapshot, \
+        restore_engine
+    from maskfusion_tpu_torch.reloc.ferns import FindResult, \
+        SurfaceConstraint
+
+    fx, fy, cx, cy, w, h = SMALL
+    cpu = torch.device("cpu")
+    cfg = Config(global_surfel_capacity=1 << 16, static_mode=True,
+                 use_so3=False, relocalisation=True, close_loops=True)
+    pts, cols = wavy_scene()
+    truth, frames = [], []
+    for i in range(5):
+        T = np.eye(4, dtype=np.float32)
+        T[0, 3] = 0.01 * i
+        truth.append(T)
+        frames.append(render_points(pts, cols, T, *SMALL))
+
+    def engine(device):
+        return MaskFusion(Resolution(w, h), CameraIntrinsics(fx, fy, cx, cy),
+                          cfg, device=device)
+
+    def feed(eng, i, ts):
+        rgb, depth = frames[i]
+        eng.process_frame(FrameData(rgb=rgb, depth=depth, timestamp=ts))
+
+    first = engine(cpu)
+    for i in range(4):
+        feed(first, i, float(i))
+    snap = engine_snapshot(first)
+    m0 = first.models[0].state.map
+    n = first.models[0].surfel_count
+    pos0, nrm0 = m0.pos.numpy().copy(), m0.normal.numpy().copy()
+    ferns0 = [f.pose.copy() for f in first.ferns.frames]
+    rng = np.random.default_rng(11)
+    src = pos0[rng.choice(n, 40, replace=False)].astype(np.float64)
+    est = first.current_pose.astype(np.float64)
+    est[:3, 3] += CLOSURE_SHIFT
+    res = FindResult(est.astype(np.float32),
+                     [SurfaceConstraint(a, a + CLOSURE_SHIFT) for a in src],
+                     0)
+    runs = {}
+    for name, device in (("card", dev), ("cpu", cpu)):
+        eng = engine(device)
+        restore_engine(eng, snap)
+        rec = {"searched": 0}
+        find, close = eng.ferns.find_frame, eng._apply_loop_closure
+
+        def one_search(*args, _rec=rec, _eng=eng, _find=find, **kw):
+            _eng.ferns.find_frame = _find
+            _rec["searched"] += 1
+            return res
+
+        def closing(glob, found, _rec=rec, _eng=eng, _close=close):
+            ok = _close(glob, found)
+            m = glob.state.map
+            _rec.update(accepted=ok, pos=m.pos.cpu().numpy(),
+                        normal=m.normal.cpu().numpy(),
+                        ferns=[f.pose.copy() for f in _eng.ferns.frames])
+            return ok
+
+        eng.ferns.find_frame = one_search
+        eng._apply_loop_closure = closing
+        feed(eng, 3, 4.0)
+        rec["closure_pose"] = eng.current_pose.astype(np.float64)
+        feed(eng, 4, 5.0)
+        rec["next_pose"] = eng.current_pose.astype(np.float64)
+        runs[name] = rec
+    a, b = runs["card"], runs["cpu"]
+    if not (a["searched"] == b["searched"] == 1 and a.get("accepted")
+            and b.get("accepted")):
+        raise AssertionError(f"the closure was not accepted: card "
+                             f"{a.get('accepted')}, CPU {b.get('accepted')}")
+    live = {}
+    for k in ("pos", "normal"):
+        x, y = a[k][:n], b[k][:n]
+        if not np.array_equal(np.isnan(x), np.isnan(y)):
+            raise AssertionError(f"the deformed {k} differ in their NaNs")
+        live[k] = float(np.nanmax(np.abs(x - y)))
+    dead_equal = all(np.array_equal(r[k][n:], ref[n:])
+                     for r in (a, b)
+                     for k, ref in (("pos", pos0), ("normal", nrm0)))
+    moved = float(np.nanmedian(np.linalg.norm(a["pos"][:n] - pos0[:n],
+                                              axis=1)))
+    fern_diff = max(float(np.abs(x - y).max())
+                    for x, y in zip(a["ferns"], b["ferns"]))
+    fern_moved = max(float(np.linalg.norm(x[:3, 3] - y[:3, 3]
+                                          - CLOSURE_SHIFT))
+                     for x, y in zip(a["ferns"], ferns0))
+    pose_err = max(float(np.abs(r["closure_pose"] - est).max())
+                   for r in (a, b))
+    dpos = float(np.linalg.norm(a["next_pose"][:3, 3]
+                                - b["next_pose"][:3, 3]))
+    drot = _rot_deg(a["next_pose"], b["next_pose"])
+    truth_err = max(float(np.linalg.norm(r["next_pose"][:3, 3]
+                                         - truth[4][:3, 3] - CLOSURE_SHIFT))
+                    for r in (a, b))
+    log(f"  accepted closure on {n} live surfels, {len(ferns0)} fern "
+        f"frames: card vs CPU deformed map positions {live['pos']:.2e}, "
+        f"normals {live['normal']:.2e}; dead rows bit-equal {dead_equal}; "
+        f"median surfel moved {moved * 1e3:.3f} mm (shift "
+        f"{np.linalg.norm(CLOSURE_SHIFT) * 1e3:.3f} mm); fern poses "
+        f"{fern_diff:.2e} apart, {fern_moved * 1e3:.3f} mm from the shift; "
+        f"closure "
+        f"pose {pose_err:.2e} from the FindResult's; next frame "
+        f"{dpos * 1e3:.4f} mm, {drot:.5f} deg apart, {truth_err * 1e3:.3f} "
+        f"mm from the shifted truth")
+    if not (live["pos"] <= 1e-5 and live["normal"] <= 1e-5 and dead_equal):
+        raise AssertionError(f"card and CPU deform the map differently: "
+                             f"{live}, dead rows equal {dead_equal}")
+    if not (moved > 0.5 * np.linalg.norm(CLOSURE_SHIFT)
+            and fern_moved <= 0.5 * np.linalg.norm(CLOSURE_SHIFT)
+            and fern_diff <= 1e-5):
+        raise AssertionError(f"the closure did not move the map and the "
+                             f"ferns: {moved} m, {fern_moved}, {fern_diff}")
+    if not (pose_err <= 1e-6 and dpos <= 1e-3 and drot <= 0.05
+            and truth_err <= 0.01):
+        raise AssertionError(f"the poses after the closure: {pose_err}, "
+                             f"{dpos} m, {drot} deg, {truth_err} m")
+    return {"live": n, "fern_frames": len(ferns0),
+            "max_abs_err": live, "dead_rows_equal": dead_equal,
+            "median_moved_m": moved, "fern_pose_diff": fern_diff,
+            "fern_shift_err": fern_moved, "next_pose_diff_m": dpos,
+            "next_rot_diff_deg": drot, "next_truth_err_m": truth_err}
+
+
+REDETECTION_SCHEDULES = ("sync", "prefused")
+
+
+def phase_redetection_parity(dev, MaskFusion, Config, Resolution,
+                             CameraIntrinsics, FrameData) -> dict:
+    """13e, second half: tests/test_torch_redetection.py's scenario, card
+    against CPU at 160x120, in the synchronous schedule (the precomputed
+    segmenter) and the prefused one (the maskfusion segmenter: the
+    reactivation runs in the pipelined host stage).  Three frames of the
+    one-object scene spawn the object; it is made inactive, as a tracking
+    jump would; three more frames.  Held on each device: the inactive
+    model is reactivated under its id with its map; card and CPU give the
+    same reactivated id and the same live ids after every frame."""
+    import torch
+
+    from maskfusion_tpu_torch.bench import render_points
+
+    fx, fy, cx, cy, w, h = SMALL
+    pts, cols, labels = one_object_scene()
+    rgb, depth, lab = render_points(pts, cols, np.eye(4), *SMALL,
+                                    labels=labels)
+    base = dict(global_surfel_capacity=1 << 16,
+                object_surfel_capacity=1 << 13, use_so3=False,
+                open_loop=True, enable_redetection=True,
+                keep_all_models=True, model_spawn_offset=0)
+    schedules = {
+        "sync": dict(seg_method="precomputed"),
+        "prefused": dict(seg_method="maskfusion",
+                         pipelined_multiobject=True, fuse_mask_lag=True)}
+    out = {}
+    for sched in REDETECTION_SCHEDULES:
+        runs = {}
+        for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            eng = MaskFusion(Resolution(w, h),
+                             CameraIntrinsics(fx, fy, cx, cy),
+                             Config(**base, **schedules[sched]),
+                             device=device)
+
+            def step(i, _eng=eng):
+                _eng.process_frame(FrameData(rgb=rgb, depth=depth, mask=lab,
+                                             class_ids=[0, 7],
+                                             timestamp=float(i)))
+                _eng.drain_pipeline()
+                return [m.model_id for m in _eng.models]
+
+            ids = [step(i) for i in range(3)]
+            if len(eng.models) != 2:
+                raise AssertionError(f"{sched} on the {name}: the object "
+                                     f"did not spawn: {ids}")
+            obj = eng.models[1]
+            eng._inactivate_model(obj, "phase 13e")
+            ids += [step(i) for i in range(3, 6)]
+            runs[name] = {"reactivated": obj.model_id, "ids": ids,
+                          "inactive": obj in eng.inactive_models,
+                          "surfels": obj.surfel_count,
+                          "pipelined": eng._pipelined_active}
+        a, b = runs["card"], runs["cpu"]
+        log(f"  redetection, {sched}: model {a['reactivated']} reactivated "
+            f"on the card with {a['surfels']} surfels (CPU {b['surfels']}); "
+            f"live ids card {a['ids']}, CPU {b['ids']}; pipelined "
+            f"{a['pipelined']}")
+        for r in (a, b):
+            if (r["inactive"] or r["reactivated"] not in r["ids"][-1]
+                    or r["surfels"] <= 50
+                    or r["pipelined"] != (sched == "prefused")):
+                raise AssertionError(f"{sched}: the model was not "
+                                     f"reactivated: {r}")
+        if (a["reactivated"], a["ids"]) != (b["reactivated"], b["ids"]):
+            raise AssertionError(f"{sched}: card and CPU reactivate "
+                                 f"differently: {a}, {b}")
+        out[sched] = a
+    return out
+
+
+VGA_SEQUENCE_FRAMES = 200
+
+
+def phase_vga_sequence(kernels, workdir: Path) -> dict:
+    """The port's sequence-level check at 640x480 (scripts/parity_vga.py's
+    run): make_sequence's 200-frame sequence (seed 0), through the port's CLI with -method precomputed in the
+    exact schedule, scored by tools.evaluate: camera ATE-RMSE, the object
+    log's displacement error (parity_vga.object_displacement's: RMSE over
+    the longest object log, re-based to its first frame) and the instance
+    IoU.  Held within 2x of the JAX package's (PARITY.md: 3.25 mm, 1.22 cm,
+    IoU 1.00 -> 6.5 mm, 2.44 cm, IoU >= 0.5)."""
+    import contextlib
+    import io
+
+    from maskfusion_tpu_torch import main as cli
+    from maskfusion_tpu_torch.tools import make_sequence
+    from maskfusion_tpu_torch.tools.evaluate import ate_rmse, \
+        segmentation_iou
+
+    seq, out = workdir / "seq_vga", workdir / "seq_vga_out"
+    t0 = time.perf_counter()
+    make_sequence.generate(str(seq), frames=VGA_SEQUENCE_FRAMES, width=640,
+                           height=480)
+    gen_s = time.perf_counter() - t0
+    argv = ["-dir", str(seq), "-cal", str(seq / "calibration.txt"),
+            "-exportdir", str(out), "-ep", "-q", "--pipeline", "exact",
+            "-method", "precomputed", "-es"]
+    kernels.reset_launch_counts()
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = cli.main(argv)
+    run_s = time.perf_counter() - t0
+    launches = {k: getattr(kernels, k).launches for k in
+                ("bilateral_depth", "predict_l0_scan", "geometric_edge_map")}
+    if rc != 0:
+        raise AssertionError(f"the sequence CLI returned {rc}")
+    ate = ate_rmse(str(out / "poses-0.txt"), str(seq / "groundtruth.txt"))
+    iou = segmentation_iou(str(out), str(seq / "gt_masks"), est_offset=-1)
+    obj_paths = [p for p in out.iterdir() if p.name.startswith("poses-")
+                 and p.name != "poses-0.txt"]
+    est = max((np.loadtxt(p).reshape(-1, 8) for p in obj_paths), key=len)
+    gt = np.loadtxt(seq / "object_groundtruth.txt")
+    gt_by_ts = {round(r[0], 3): r[1:4] for r in gt}
+    pairs = [(r[1:4], gt_by_ts[round(r[0], 3)]) for r in est
+             if round(r[0], 3) in gt_by_ts]
+    e = np.array([p[0] for p in pairs])
+    g = np.array([p[1] for p in pairs])
+    d = np.linalg.norm((e - e[0]) - (g - g[0]), axis=1)
+    obj = {"rmse_m": float(np.sqrt((d ** 2).mean())),
+           "final_m": float(d[-1]), "max_m": float(d.max()),
+           "frames": len(pairs)}
+    log(f"  {VGA_SEQUENCE_FRAMES} frames generated in {gen_s:.1f} s, run "
+        f"in {run_s:.1f} s ({VGA_SEQUENCE_FRAMES / run_s:.2f} FPS, reading "
+        f"included); launches {launches}")
+    log(f"  camera ATE-RMSE {ate['rmse'] * 1e3:.3f} mm over {ate['pairs']} "
+        f"pairs (JAX package 3.25 mm); object displacement RMSE "
+        f"{obj['rmse_m'] * 1e2:.3f} cm over {obj['frames']} frames, final "
+        f"{obj['final_m'] * 1e2:.3f} cm (JAX 1.22 cm); instance IoU "
+        f"{iou['mean_iou']:.4f} over {iou['frames']} frames (JAX 1.00)")
+    if not (ate["rmse"] <= 2 * 3.25e-3 and obj["rmse_m"] <= 2 * 1.22e-2
+            and iou["mean_iou"] >= 0.5 and ate["pairs"] >= 190):
+        raise AssertionError(f"the VGA sequence is outside 2x of the JAX "
+                             f"package's: {ate}, {obj}, {iou}")
+    return {"frames": VGA_SEQUENCE_FRAMES, "generate_s": gen_s,
+            "run_s": run_s, "launches": launches, "ate": ate,
+            "object": obj, "iou": iou}
+
+
 def main() -> int:
     import torch
 
@@ -2388,6 +3054,43 @@ def main() -> int:
         rec["launches_by_path"].update(
             cofusion=cofusion["launches"][rec["name"]],
             cli_cofusion=cofusion["cli"]["launches"][rec["name"]])
+
+    log_phase("phase 13a: the deformation graph on the card (1024 nodes, "
+              f"{DEFORM_LIVE} live surfels in {DEFORM_CAPACITY} slots)")
+    reloc = {"deformation": phase_deformation(dev)}
+    log_phase("phase 13b: relocalisation at 640x480: the -static scenario, "
+              "then the multi-object engine with ferns")
+    reloc["vga"] = phase_reloc_vga(dev, kernels, MaskFusion, Config,
+                                   Resolution, CameraIntrinsics, FrameData,
+                                   frames, mo_frames, intr, mo_run)
+    log_phase("phase 13c: the 160x120 relocalisation scenario, card "
+              "against CPU")
+    reloc["parity"] = phase_reloc_parity(dev, MaskFusion, Config, Resolution,
+                                         CameraIntrinsics, FrameData)
+    log_phase(f"phase 13d: the CLI with -rl on phase 8's log, and "
+              "--save-state / --load-state")
+    with tempfile.TemporaryDirectory(dir=build) as workdir:
+        reloc["cli"] = phase_cli_reloc(kernels, frames, Path(workdir))
+    log_phase("phase 13e: an accepted loop closure and redetection in both "
+              "schedules at 160x120, card against CPU")
+    reloc["closure"] = phase_closure_parity(dev, MaskFusion, Config,
+                                            Resolution, CameraIntrinsics,
+                                            FrameData)
+    reloc["redetection"] = phase_redetection_parity(
+        dev, MaskFusion, Config, Resolution, CameraIntrinsics, FrameData)
+    for rec in records:
+        rec["launches_by_path"].update(
+            reloc_static=reloc["vga"]["static"]["launches"].get(
+                rec["name"], 0),
+            reloc_multiobject=reloc["vga"]["multiobject"]["launches"][
+                rec["name"]],
+            cli_rl=reloc["cli"]["launches"].get(rec["name"], 0))
+    if "--vga-sequence" in sys.argv[1:]:
+        log_phase(f"phase 14: the sequence check at 640x480 "
+                  f"({VGA_SEQUENCE_FRAMES} frames through the CLI)")
+        with tempfile.TemporaryDirectory(dir=build) as workdir:
+            reloc["vga_sequence"] = phase_vga_sequence(kernels,
+                                                       Path(workdir))
     torch.cuda.synchronize()
     log(f"engine: {json.dumps({k: v for k, v in run.items()})}")
     log(f"parity: {json.dumps(parity)}")
@@ -2400,6 +3103,7 @@ def main() -> int:
     log(f"nn full width: {json.dumps(nn_full)}")
     log(f"train: {json.dumps(train)}")
     log(f"cofusion: {json.dumps(cofusion)}")
+    log(f"relocalisation: {json.dumps(reloc)}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     for line in bench_lines:
         print(json.dumps(line), flush=True)

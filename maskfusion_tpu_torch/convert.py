@@ -10,14 +10,17 @@ predictions and the engine's host bookkeeping.
 - `engine_snapshot` / `restore_engine`: a whole engine (every active and
   inactive model's state and record, object window included, the frame
   counter, the id and spawn counters, the last segmentation, the
-  recent-spawn claims, the segmenter's carried state, and what the
-  pipelined schedules read: each model's surfel-count estimate and the last
-  tracking verdict) as plain numpy and Python values.  The snapshot reads
-  any engine with the JAX package's attribute names, arrays through
-  ``np.asarray``, so the port can start from the JAX engine's state and both
-  can then run in lockstep, in the synchronous or a pipelined schedule.  An
-  engine with pipelined frames still pending is refused: its state is not
-  that of any one frame until ``drain_pipeline()`` has finished them.
+  recent-spawn claims, the segmenter's carried state, what the pipelined
+  schedules read: each model's surfel-count estimate and the last tracking
+  verdict, and relocalisation's state: the tracking-loss bookkeeping and
+  the fern database, its seeded ferns and its kept frames, in
+  ``io.checkpoint``'s layout) as plain numpy and Python values.  The
+  snapshot reads any engine with the JAX package's attribute names, arrays
+  through ``np.asarray``, so the port can start from the JAX engine's state
+  and both can then run in lockstep, in the synchronous or a pipelined
+  schedule.  An engine with pipelined frames still pending is refused: its
+  state is not that of any one frame until ``drain_pipeline()`` has
+  finished them.
 - `maskrcnn_state_dict`: the JAX package's Mask R-CNN parameter tree (flax
   names, numpy arrays: a ``model.init`` or ``checkpoint_io.load_params``
   tree) becomes the ``state_dict`` of the port's ``maskrcnn.model.MaskRCNN``.
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from maskfusion_tpu_torch.engine import MapState, MaskFusion, Model
+from maskfusion_tpu_torch.io import checkpoint
 from maskfusion_tpu_torch.mapping.surfel_map import SurfelMap
 
 MAP_FIELDS = SurfelMap._fields
@@ -41,7 +45,8 @@ MODEL_FIELDS = ("model_id", "class_id", "age", "unseen_count", "is_static",
                 "prev_pose", "last_bucket", "count_est", "window",
                 "fused_once")
 ENGINE_FIELDS = ("tick", "next_id", "spawn_offset", "lost",
-                 "_last_tracking_ok", "_pipelined_active")
+                 "_last_tracking_ok", "_pipelined_active",
+                 "bad_tracking_streak", "last_frame_recovery")
 SEGMENTER_FIELDS = ("semantic_ignore", "_ignore_any", "label_to_model")
 
 
@@ -100,6 +105,9 @@ def engine_snapshot(engine) -> Dict[str, Any]:
     snap["segmenter"] = {k: getattr(engine.segmenter, k)
                          for k in SEGMENTER_FIELDS
                          if hasattr(engine.segmenter, k)}
+    # the fern database in the checkpoint's layout (io/checkpoint.py)
+    snap["ferns"] = None if engine.ferns is None else \
+        checkpoint.fern_record(engine.ferns)
     return snap
 
 
@@ -131,6 +139,8 @@ def restore_engine(engine: MaskFusion, snap: Dict[str, Any]) -> None:
         if hasattr(engine.segmenter, k):
             setattr(engine.segmenter, k,
                     v.copy() if hasattr(v, "copy") else v)
+    if engine.ferns is not None and snap["ferns"] is not None:
+        checkpoint.restore_ferns(engine.ferns, *snap["ferns"])
     if engine.models:
         engine._last_count = engine.models[0].surfel_count
     engine._frames_since_flush = 0

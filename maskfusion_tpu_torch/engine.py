@@ -54,9 +54,26 @@ the synchronous step, whatever ``pipelined_multiobject`` says: the
 pipelined schedules need the device edge map, which only the maskfusion
 segmenter has (engine.py:1147-1153 of the JAX package); its host
 segmentation reads every model's prediction each frame
-(``_cf_model_views``).  Redetection and relocalisation come with a later
-slice; asking for them raises NotImplementedError.  Multi-device sharding
-of the object axis (`_shard_model_axis`) is ROADMAP queue 1 item 14.
+(``_cf_model_views``).
+
+Relocalisation and loop closure (``relocalisation`` / ``close_loops``,
+engine.py:1304-1361, 2464-2521 of the JAX package): a fern database
+(reloc/ferns) is kept, and every such frame runs the synchronous step,
+the -static one included (the pipelined and the -static fast-path gates
+both require ``ferns is None``, as in the JAX package).  After tracking,
+the tracking-loss bookkeeping sets ``lost`` after more than 10 frames
+whose tracking failed; under ``close_loops`` the fern search runs each
+frame and either recovers a lost camera's pose or, when not lost, closes
+the loop through a deformation graph (reloc/deformation) that deforms the
+global map on the device.  A frame that is not lost adds its 1/8-scale
+views to the database after fusion.  As in the JAX package, only the fern
+search ends a loss, so ``relocalisation`` without ``close_loops`` (the
+CLI's ``-rl``) stays lost once lost.  Redetection (``enable_redetection``,
+engine.py:1077-1104, 1694-1725): a model made inactive gets a fern
+description (mapping/model_matching); a new mask component that matches
+one reactivates that model instead of spawning, in either schedule.
+Multi-device sharding of the object axis (`_shard_model_axis`) is ROADMAP
+queue 1 item 14.
 
 The JAX package jits each stage, donates the map buffers and prewarms its
 compile cache (`prewarm_next_buckets`, `_note_prewarm`).  PyTorch runs
@@ -218,21 +235,6 @@ def _window_size(cfg: Config, H: int, W: int) -> int:
     return 0 if ow <= 0 or ow > min(H, W) or ow % 8 else ow
 
 
-def _check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for what the port does not run yet, naming
-    the ROADMAP item that brings it."""
-    if cfg.relocalisation or cfg.close_loops:
-        raise NotImplementedError(
-            "relocalisation and loop closure are not ported yet (ROADMAP "
-            "queue 1 item 12)")
-    if cfg.static_mode:
-        return
-    if cfg.enable_redetection:
-        raise NotImplementedError(
-            "enable_redetection: model redetection needs the fern model "
-            "matcher, ported with relocalisation (ROADMAP queue 1 item 12)")
-
-
 class MaskFusion:
     """Host-side engine with the public surface of the JAX package's
     MaskFusion, for the -static and the multi-object frame."""
@@ -243,7 +245,6 @@ class MaskFusion:
         self.intr = intr
         self.cfg = config or Config()
         H, W = resolution.height, resolution.width
-        _check_supported(self.cfg)
         self.device = torch.device(device) if device is not None \
             else default_device()
         self._tuning = get_tuning(self.device)
@@ -254,7 +255,22 @@ class MaskFusion:
         self.next_id = 1
         self.spawn_offset = self.cfg.model_spawn_offset
         self.last_segmentation: Optional[np.ndarray] = None
+        # relocalisation: the fern database and the tracking-loss
+        # bookkeeping (engine.py:165, 186-197 of the JAX package)
         self.lost = False
+        self.last_frame_recovery = False
+        self.bad_tracking_streak = 0
+        self.ferns = None
+        if self.cfg.relocalisation or self.cfg.close_loops:
+            from maskfusion_tpu_torch.reloc.ferns import Ferns
+
+            self.ferns = Ferns(
+                self.cfg.num_ferns, resolution, intr,
+                max_depth=self.cfg.depth_cutoff,
+                photo_thresh=self.cfg.photometric_thresh,
+                factor=1 << self.cfg.fern_pyramid_level, device=self.device)
+        self._matcher = None      # redetection's FernModelMatcher, made
+                                  # when a model first goes inactive
         self.new_model_listeners: List[Callable] = []
         self.inactive_model_listeners: List[Callable] = []
         # (expiry tick, model id, spawn mask): phantom re-spawn claims, see
@@ -901,8 +917,9 @@ class MaskFusion:
             if len(self.models) >= self.cfg.max_models:
                 raise RuntimeError("maximum number of models (256) in use")
             used = {m.model_id for m in self.models}
-            if self.cfg.keep_all_models:
-                # a kept inactive model's id stays reserved
+            if self.cfg.enable_redetection or self.cfg.keep_all_models:
+                # a kept inactive model can be reactivated: its id stays
+                # reserved
                 used |= {m.model_id for m in self.inactive_models}
             while True:
                 self.next_id = (self.next_id + 1) % 256 or 1
@@ -910,14 +927,32 @@ class MaskFusion:
                     break
         return nxt
 
+    def _model_matcher(self):
+        if self._matcher is None:
+            from maskfusion_tpu_torch.mapping.model_matching import \
+                FernModelMatcher
+
+            self._matcher = FernModelMatcher()
+        return self._matcher
+
+    def _redetect(self, frame: FrameData, roi):
+        """An inactive model found in `roi` of the frame, or None
+        (engine.py:1077-1083 of the JAX package)."""
+        return self._model_matcher().detect_in_region(frame, roi,
+                                                      self.inactive_models)
+
     def _inactivate_model(self, model: Model, reason: str) -> None:
         """Smart delete (MaskFusion::inactivateModel, :699-713): a model
-        with enough confident surfels is kept as inactive."""
+        with enough confident surfels is kept as inactive; with
+        enable_redetection its prediction is described for the matcher
+        (one fetch of the prediction)."""
         keep = self.cfg.keep_all_models or (
             model.surfel_count >= self.cfg.min_surfels_keep
             and model.conf_threshold > self.cfg.min_conf_keep)
         if keep:
             self.inactive_models.append(model)
+            if self.cfg.enable_redetection:
+                self._model_matcher().build_model_description(model)
         for cb in self.inactive_model_listeners:
             cb(model)
         self.models.remove(model)
@@ -1189,6 +1224,41 @@ class MaskFusion:
                     cd.pixel_count = nd.pixel_count
         self._recent_spawns = [
             (e, r, m) for (e, r, m) in self._recent_spawns if tick <= e]
+
+        # -------- redetect inactive models (MaskFusion::redetectModels
+        # interface, gutted in the reference :686-689; engine.py:1694-1725
+        # of the JAX package): a new component that matches an inactive
+        # model reactivates it at the camera pose instead of spawning
+        if (cfg.enable_redetection and self.inactive_models
+                and seg_result.has_new_label):
+            md = seg_result.model_data[-1]
+            sel = seg_result.full_segmentation == md.model_id
+            if sel.any():
+                ys, xs = np.where(sel)
+                roi = (int(ys.min()), int(xs.min()),
+                       int(ys.max()) + 1, int(xs.max()) + 1)
+                det = self._redetect(frame, roi)
+                if det is not None:
+                    gp = (self._upload(self._np_glob_pose)
+                          if self._np_glob_pose is not None
+                          else glob.state.pose)
+                    for m in list(self.inactive_models):
+                        if m.model_id == det.model_id:
+                            self.inactive_models.remove(m)
+                            m.prev_pose = gp.clone()
+                            m.state = m.state._replace(pose=gp.clone())
+                            self.models.append(m)
+                            if hasattr(self.segmenter, "remap_new_label"):
+                                self.segmenter.remap_new_label(
+                                    md.model_id, m.model_id)
+                            seg_result.has_new_label = False
+                            seg_result.full_segmentation = np.where(
+                                sel, m.model_id,
+                                seg_result.full_segmentation
+                            ).astype(np.uint8)
+                            seg_mask_np = seg_result.full_segmentation
+                            self.last_segmentation = seg_mask_np
+                            break
 
         # -------- spawn a new model (:314-332) --------
         if seg_result.has_new_label:
@@ -1693,12 +1763,16 @@ class MaskFusion:
             return {"tick": self.tick, "surfels": self._last_count,
                     "tracking_ok": True, "n_models": 1}
         # the pipelined schedules need the device edge map, i.e. the
-        # maskfusion segmenter (engine.py:1147-1153 of the JAX package)
-        if (not cfg.static_mode and gt_pose is None
+        # maskfusion segmenter, and no fern database (engine.py:1147-1153
+        # of the JAX package)
+        if (not cfg.static_mode and gt_pose is None and self.ferns is None
                 and cfg.pipelined_multiobject
                 and hasattr(self.segmenter, "edge_binary")):
             return self._pipelined_step(frame, rgb, depth, t0)
-        if gt_pose is not None or not cfg.static_mode:
+        # the -static fast path too runs without ferns only
+        # (engine.py:1188 of the JAX package)
+        if (gt_pose is not None or not cfg.static_mode
+                or self.ferns is not None):
             return self._general_step(frame, rgb, depth, gt_pose, t0)
 
         # -static fast path: one step, no per-frame host sync
@@ -1800,6 +1874,7 @@ class MaskFusion:
                     if jump > cfg.model_deactivate_jump:
                         self._inactivate_model(model, "movement")
         self._mark("track")
+        self._relocalise(glob, tracking_ok)
 
         if cfg.static_mode:
             seg_mask_np = np.zeros((H, W), np.uint8)
@@ -1819,6 +1894,12 @@ class MaskFusion:
             self._dispatch_fuse(prep, rgb, seg_mask_np, self.tick, do_fuse)
         self._mark("fuse")
 
+        if self.ferns is not None and not self.lost:
+            # the fern keyframe add (engine.py:1358-1361 of the JAX package)
+            *small, pose = self._fern_views(glob)
+            self.ferns.add_frame(*small, pose, self.tick,
+                                 cfg.fern_threshold)
+
         self._log_poses(frame)
         for model in self.models:
             model.age += 1
@@ -1832,6 +1913,100 @@ class MaskFusion:
         if self._diag_exporter:
             self._diag_exporter.record(self, diag, prep.levels[0]["vmap"])
         return diag
+
+    # ------------------------------------------------------ relocalisation
+    def _relocalise(self, glob: Model, tracking_ok: bool) -> None:
+        """The tracking-loss bookkeeping (-rl; MaskFusion.cpp:377-414) and
+        the fern search (MaskFusion.cpp:423-537) of a synchronous frame,
+        after tracking (engine.py:1304-1341 of the JAX package).  A lost
+        camera found in the database takes the fern's pose; a loop closure
+        the deformation graph accepts deforms the map, and the camera takes
+        the fern's pose too (MaskFusion.cpp:443-456)."""
+        cfg = self.cfg
+        if cfg.relocalisation:
+            if not self.lost:
+                if not tracking_ok:
+                    self.bad_tracking_streak += 1
+                    if self.bad_tracking_streak > 10:
+                        self.lost = True
+                else:
+                    self.bad_tracking_streak = 0
+            elif self.last_frame_recovery:
+                if tracking_ok:
+                    self.lost = False
+                    self.bad_tracking_streak = 0
+                self.last_frame_recovery = False
+        if self.ferns is None or not cfg.close_loops:
+            return
+        self.last_frame_recovery = False
+        *small, pose = self._fern_views(glob)
+        res = self.ferns.find_frame(pose, *small, time=self.tick,
+                                    lost=self.lost)
+        if res.pose is None:
+            return
+        if self.lost:
+            self.last_frame_recovery = True
+        elif not self._apply_loop_closure(glob, res):
+            return
+        glob.state = glob.state._replace(pose=self._upload(
+            res.pose.astype(np.float32)))
+
+    def _fern_views(self, glob: Model):
+        """The global model's 1/8-scale views for the fern database (the
+        reference resizes its fill-in textures, MaskFusion.cpp:430-432,
+        609-614; engine.py:2464-2483 of the JAX package) and its pose, in
+        ONE fetch: the stride, clip and NaN-to-zero run on the device, and
+        the uint8 colours, f32 vertices, normals and pose come back packed
+        as bytes (about 130 KB at 640x480), never the full-size maps.
+        Returns (rgb, verts, norms, pose) host arrays."""
+        f = self.ferns.factor
+        st = glob.state
+        rgb = torch.clamp(st.pred_rgb[::f, ::f], 0, 255).to(torch.uint8)
+        vm = torch.nan_to_num(st.pred_vmap[::f, ::f], nan=0.0)
+        nm = torch.nan_to_num(st.pred_nmap[::f, ::f], nan=0.0)
+        parts = (rgb, vm, nm, st.pose.to(torch.float32))
+        packed = torch.cat([p.contiguous().reshape(-1).view(torch.uint8)
+                            for p in parts]).cpu().numpy()
+        out, off = [], 0
+        for p in parts:
+            nb = p.numel() * p.element_size()
+            dt = np.uint8 if p.dtype == torch.uint8 else np.float32
+            out.append(packed[off:off + nb].view(dt).reshape(p.shape))
+            off += nb
+        return tuple(out)
+
+    def _apply_loop_closure(self, glob: Model, res) -> bool:
+        """Local loop closure (engine.py:2485-2521 of the JAX package): a
+        deformation graph over the fern constraints, accepted on the
+        reference's thresholds (Deformation::constrain,
+        Deformation.cpp:75-180: mean constraint error < 3e-4 and total
+        < 0.12), then applied to the map on the device and to every fern
+        frame's pose.  Nodes are sampled with the JAX package's systematic
+        stride in init-time order (np.argsort as it calls it, so that both
+        pick the same nodes); only init_time[:n] and the node positions
+        come to the host, and only the (G, 24) node table goes back."""
+        from maskfusion_tpu_torch.reloc.deformation import DeformationGraph
+
+        n = glob.surfel_count
+        if n < 100 or not res.constraints:
+            return False
+        m = glob.state.map
+        times = m.init_time[:n].cpu().numpy()
+        max_nodes = self.cfg.deformation_max_nodes
+        order = np.argsort(times)
+        step = max(1, n // max_nodes)
+        idx = order[::step][:max_nodes]
+        node_pos = m.pos[self._upload(idx.astype(np.int64))].cpu().numpy()
+        graph = DeformationGraph(node_pos, times[idx], device=self.device)
+        for c in res.constraints:
+            graph.add_constraint(c.source_point, c.target_point)
+        total, mean_cons = graph.optimise()
+        if not (mean_cons < 0.0003 and total < 0.12):
+            return False
+        graph.apply_to_map_device(m.pos, m.normal, n)
+        for fframe in self.ferns.frames:
+            fframe.pose = graph.apply_to_pose(fframe.pose)
+        return True
 
     def flush_diagnostics(self) -> Dict:
         """Fetch the most recent -static step's diagnostics (one

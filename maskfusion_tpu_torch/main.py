@@ -15,6 +15,10 @@ Usage examples (same surface as the reference):
   python -m maskfusion_tpu_torch.main -dir seq -method precomputed \\
       --pipeline off -maskdir masks
   python -m maskfusion_tpu_torch.main -l log.klg --nn -frameQ 5 -ep
+  python -m maskfusion_tpu_torch.main -l log.klg -rl -e 100 \
+      --save-state ckpt
+  python -m maskfusion_tpu_torch.main -l log.klg -rl -s 100 \
+      --load-state ckpt -ep
 """
 
 from __future__ import annotations
@@ -29,8 +33,6 @@ import time
 _UNPORTED = (
     ("viewer", "-viewer", "queue 1 item 13 (viewer and gui)"),
     ("export_viewport", "-ev", "queue 1 item 13 (viewer and gui)"),
-    ("save_state", "--save-state", "queue 1 item 13 (checkpoint)"),
-    ("load_state", "--load-state", "queue 1 item 13 (checkpoint)"),
 )
 
 
@@ -196,8 +198,8 @@ def make_config(args):
 
 def check_ported(args) -> None:
     """Raise NotImplementedError for a flag whose code is not ported yet,
-    naming the ROADMAP item that brings it.  (-rl and redetection raise in
-    the engine; every --pipeline schedule and -method runs.)"""
+    naming the ROADMAP item that brings it.  (Every engine option, every
+    --pipeline schedule and -method runs.)"""
     for attr, flag, item in _UNPORTED:
         if getattr(args, attr):
             raise NotImplementedError(
@@ -305,6 +307,11 @@ def main(argv=None, device=None):
         print(f"auto-detected resolution {res.width}x{res.height}")
 
     engine = MaskFusion(res, intr, cfg, device=device)
+    if args.load_state:
+        from maskfusion_tpu_torch.io import checkpoint
+
+        checkpoint.load(engine, args.load_state)
+        print(f"resumed from {args.load_state} at tick {engine.tick}")
 
     budget_ms = 1000.0 / cfg.target_fps
     n = 0
@@ -379,6 +386,13 @@ def main(argv=None, device=None):
     print(f"processed {n} frames in {elapsed:.1f}s ({fps:.2f} FPS)")
     print("timings(ms):", {k: round(v, 1)
                            for k, v in engine.stopwatch.summary().items()})
+
+    if args.save_state:
+        # not drained first, as in the JAX CLI (io/checkpoint.py)
+        from maskfusion_tpu_torch.io import checkpoint
+
+        checkpoint.save(engine, args.save_state)
+        print(f"checkpoint written to {args.save_state}")
 
     if cfg.export_dir:
         if cfg.export_poses:

@@ -98,33 +98,66 @@ def test_cli_static_matches_jax(static_runs):
 
 
 def test_cli_unported_engine_options_raise(static_data):
-    """-rl, static or in the CLI's default pipelined schedule, raises in
-    the engine, naming its ROADMAP item; -method cofusion runs the log in
-    the synchronous frame and writes its poses."""
+    """-rl runs, static (the synchronous step, ferns being on) and in the
+    CLI's default pipelined schedule (the synchronous frame, as ferns
+    close the pipelined gate), and writes its poses; so does -method
+    cofusion, in the synchronous frame.  No engine option raises."""
     base, data, cal = static_data
     common = ["-dir", str(data), "-q", "-cal", cal,
-              "--global-capacity", str(1 << 16)]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        tmain([*common, "-static", "-rl"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        tmain([*common, "-rl"], device="cpu")
-    out = base / "cofusion"
-    assert tmain([*common, "-method", "cofusion", "-exportdir", str(out),
-                  "-ep"], device="cpu") == 0
-    _, poses = chip_smoke.read_tum(out / "poses-0.txt")
-    assert len(poses) == 3 and np.isfinite(np.asarray(poses)).all()
+              "--global-capacity", str(1 << 16), "-ep"]
+    for name, flags in (("rl_static", ["-static", "-rl"]), ("rl", ["-rl"]),
+                        ("cofusion", ["-method", "cofusion"])):
+        out = base / name
+        assert tmain([*common, *flags, "-exportdir", str(out)],
+                     device="cpu") == 0, name
+        _, poses = chip_smoke.read_tum(out / "poses-0.txt")
+        assert len(poses) == 3 and np.isfinite(np.asarray(poses)).all()
+        # the dataset's camera holds still
+        assert max(np.linalg.norm(p[:3, 3]) for p in poses) < 0.01
 
 
 @pytest.mark.parametrize("flag,item", [
     (["-viewer"], "item 13 (viewer and gui)"),
     (["-ev"], "item 13 (viewer and gui)"),
-    (["--save-state", "s.npz"], "item 13 (checkpoint)"),
-    (["--load-state", "s.npz"], "item 13 (checkpoint)"),
+    (["--save-state"], None),
+    (["--load-state"], None),
 ], ids=["viewer", "viewport", "save_state", "load_state"])
-def test_cli_unported_flags_raise(flag, item):
-    with pytest.raises(NotImplementedError,
-                       match=re.escape(f"ROADMAP queue 1 {item}")):
-        tmain(["-dir", "no-such-dir", "-static", *flag], device="cpu")
+def test_cli_unported_flags_raise(flag, item, static_data, static_runs,
+                                  tmp_path):
+    """-viewer and -ev raise, naming their ROADMAP item.  --save-state
+    writes the JAX package's checkpoint layout after the run;
+    --load-state resumes one written after the first two frames, and the
+    last frame's run exports the uninterrupted run's poses (within 1e-5 m
+    and 1e-3 deg)."""
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=re.escape(f"ROADMAP queue 1 {item}")):
+            tmain(["-dir", "no-such-dir", "-static", *flag], device="cpu")
+        return
+    import json
+
+    base, data, cal = static_data
+    common = ["-dir", str(data), "-static", "-q", "-nso", "-cal", cal,
+              "--global-capacity", str(1 << 16)]
+    ckpt = tmp_path / "ckpt"
+    if flag == ["--save-state"]:
+        assert tmain([*common, "--save-state", str(ckpt)],
+                     device="cpu") == 0
+        meta = json.loads((ckpt / "meta.json").read_text())
+        assert meta["tick"] == 3 and meta["models"][0]["name"] == "model0"
+        with np.load(ckpt / "model0.npz") as z:
+            assert z["pos"].shape == (1 << 16, 3)      # at capacity
+            assert int(z["count"]) > 1000
+        return
+    assert tmain([*common, "-e", "2", "--save-state", str(ckpt)],
+                 device="cpu") == 0
+    out = tmp_path / "resumed"
+    assert tmain([*common, "-s", "2", "--load-state", str(ckpt), "-ep",
+                  "-exportdir", str(out)], device="cpu") == 0
+    ts, poses = chip_smoke.read_tum(out / "poses-0.txt")
+    ts0, poses0 = chip_smoke.read_tum(static_runs["torch"] / "poses-0.txt")
+    assert ts == ts0
+    assert_poses_close(poses, poses0, pos_m=1e-5, deg=1e-3)
 
 
 # ---------------------------------------------------------- multi-object CLI

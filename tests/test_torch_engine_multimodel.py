@@ -1,7 +1,6 @@
 """The port's synchronous multi-object frame: the scenarios of
-tests/test_engine_multimodel.py at their bounds, the configurations that
-raise until a later slice brings them (and Co-Fusion, which runs), and a
-lockstep run against the JAX engine from a state carried across after the
+tests/test_engine_multimodel.py at their bounds, the configurations of
+later slices (Co-Fusion, redetection, relocalisation), and a lockstep run against the JAX engine from a state carried across after the
 spawns.
 
 Lockstep bounds, per frame: the same model ids and class ids; the global
@@ -264,38 +263,40 @@ def test_erase_error_geometry_matches_jax(spawned_pair):
                                atol=1e-6)
 
 
-# ------------------------------- not ported: must raise; Co-Fusion runs
-# the pipelined schedules run (tests/test_torch_pipelined*.py), and so does
-# Co-Fusion, with them or not (in the synchronous frame); redetection and
-# relocalisation still raise
-@pytest.mark.parametrize("overrides,res,match", [
+# ------------------------------- the configurations of later slices run
+# the pipelined schedules (tests/test_torch_pipelined*.py), Co-Fusion, with
+# them or not (in the synchronous frame), redetection and relocalisation
+# all run; the VGA case only constructs the engine
+@pytest.mark.parametrize("overrides,res,run", [
     (dict(seg_method="cofusion", pipelined_multiobject=True), (160, 120),
-     None),
+     True),
     (dict(seg_method="maskfusion", pipelined_multiobject=True,
-          enable_redetection=True), (640, 480), "ROADMAP queue 1 item 12"),
-    (dict(seg_method="cofusion"), (160, 120), None),
-    (dict(enable_redetection=True), (160, 120), "ROADMAP"),
-    (dict(relocalisation=True), (160, 120), "ROADMAP"),
+          enable_redetection=True), (640, 480), False),
+    (dict(seg_method="cofusion"), (160, 120), True),
+    (dict(enable_redetection=True), (160, 120), True),
+    (dict(relocalisation=True), (160, 120), True),
 ], ids=["pipelined", "pipelined_vga", "cofusion", "redetection",
         "relocalisation"])
-def test_unported_configurations_raise(overrides, res, match):
-    """A configuration not ported yet raises, naming its ROADMAP item; one
-    whose `match` is None runs two frames of tests/synthetic.py's scene
-    in the synchronous frame."""
+def test_unported_configurations_raise(overrides, res, run):
+    """Every configuration is ported: none raises.  One with `run` runs two
+    frames of tests/synthetic.py's scene in the synchronous frame (ferns
+    force it under relocalisation); redetection keeps a matcher for the
+    models it makes inactive, relocalisation a fern database."""
     cfg = Config(**{**BASE, **overrides})
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            MaskFusion(Resolution(*res), tintr(syn.DEFAULT_INTR), cfg,
-                       device=CPU)
-        return
     eng = MaskFusion(Resolution(*res), tintr(syn.DEFAULT_INTR), cfg,
                      device=CPU)
+    assert (eng.ferns is not None) == bool(cfg.relocalisation)
+    if not run:
+        return
     pts, cols = syn.make_scene()
     rgb, depth = syn.render(pts, cols, np.eye(4), syn.DEFAULT_INTR)
     for i in range(2):
         out = eng.process_frame(FrameData(rgb=rgb, depth=depth,
                                           timestamp=float(i)))
     assert out["tracking_ok"] and out["model_ids"] == [0]
+    assert not out.get("lost")
+    if cfg.relocalisation:
+        assert len(eng.ferns.frames) == 1
     assert eng.last_segmentation.shape == (res[1], res[0])
 
 

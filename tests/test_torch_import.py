@@ -59,6 +59,12 @@ import maskfusion_tpu_torch.parallel
 import maskfusion_tpu_torch.parallel.train
 import maskfusion_tpu_torch.ops.slic
 import maskfusion_tpu_torch.segmentation.cf_segmentation
+import maskfusion_tpu_torch.reloc.ferns
+import maskfusion_tpu_torch.reloc.deformation
+import maskfusion_tpu_torch.mapping.model_matching
+import maskfusion_tpu_torch.io.checkpoint
+import maskfusion_tpu_torch.tools.evaluate
+import maskfusion_tpu_torch.tools.make_sequence
 """
 
 # the -l path needs no OpenCV (the card's machine has none): with cv2

@@ -287,3 +287,120 @@ def test_stopwatch_matches_jax():
         pass
     assert tw.counts["fuse"] == 1 and tw.last_ms["fuse"] >= 0.0
     assert Stopwatch().should_skip_frames() == 0
+
+
+# ------------------------------------------------------------- checkpoints
+# tests/test_io.py::test_checkpoint_resume's configuration: the -static
+# frame with relocalisation and loop closure on (the synchronous step,
+# with a fern database to carry)
+CKPT = dict(global_surfel_capacity=1 << 16, static_mode=True,
+            use_so3=False, relocalisation=True, close_loops=True)
+
+
+def _ckpt_frames(n=5):
+    pts, cols = syn.make_scene()
+    out = []
+    for i in range(n):
+        pose = syn.pose_from(np.zeros(3), np.array([0.004 * i, 0, 0]))
+        rgb, depth = syn.render(pts, cols, pose, syn.DEFAULT_INTR)
+        out.append((rgb, depth, float(i)))
+    return out
+
+
+def _port_engine():
+    from maskfusion_tpu_torch.camera import Resolution
+    from maskfusion_tpu_torch.config import Config
+    from maskfusion_tpu_torch.engine import MaskFusion
+    from tests.torch_helpers import CPU, tintr
+
+    return MaskFusion(Resolution(syn.W, syn.H), tintr(syn.DEFAULT_INTR),
+                      Config(**CKPT), device=CPU)
+
+
+def _jax_engine():
+    from maskfusion_tpu.camera import Resolution
+    from maskfusion_tpu.config import Config
+    from maskfusion_tpu.engine import MaskFusion
+
+    return MaskFusion(Resolution(syn.W, syn.H), syn.DEFAULT_INTR,
+                      Config(**CKPT))
+
+
+def _run(eng, frame_cls, frames):
+    poses = []
+    for rgb, depth, ts in frames:
+        eng.process_frame(frame_cls(rgb=rgb, depth=depth, timestamp=ts))
+        poses.append(np.array(eng.current_pose))
+    return poses
+
+
+@pytest.fixture(scope="module")
+def checkpoints(tmp_path_factory):
+    """Each package runs 3 frames, saves a checkpoint and runs 2 more;
+    returns the two checkpoint directories and each package's poses over
+    the last 2 frames."""
+    from maskfusion_tpu.io import checkpoint as jckpt
+    from maskfusion_tpu_torch.io import checkpoint as tckpt
+
+    base = tmp_path_factory.mktemp("ckpt")
+    frames = _ckpt_frames()
+    out = {"frames": frames}
+    for name, make, cls, ckpt in (("jax", _jax_engine, JFrameData, jckpt),
+                                  ("port", _port_engine, FrameData, tckpt)):
+        eng = make()
+        _run(eng, cls, frames[:3])
+        ckpt.save(eng, str(base / name))
+        out[name] = (str(base / name), _run(eng, cls, frames[3:]),
+                     eng.global_model.surfel_count, len(eng.ferns.frames))
+    return out
+
+
+def test_checkpoint_resume(tmp_path):
+    """tests/test_io.py::test_checkpoint_resume on the port: save mid-run,
+    restore into a fresh engine, continue; the trajectories match a run
+    without the interruption."""
+    from maskfusion_tpu_torch.io import checkpoint
+
+    frames = _ckpt_frames()
+    a = _port_engine()
+    _run(a, FrameData, frames[:3])
+    checkpoint.save(a, str(tmp_path / "ckpt"))
+    b = _port_engine()
+    checkpoint.load(b, str(tmp_path / "ckpt"))
+    assert b.tick == a.tick
+    assert b.global_model.surfel_count == a.global_model.surfel_count
+    assert len(b.ferns.frames) == len(a.ferns.frames)
+    np.testing.assert_allclose(b.current_pose, a.current_pose, atol=1e-6)
+    pa = _run(a, FrameData, frames[3:])
+    pb = _run(b, FrameData, frames[3:])
+    np.testing.assert_allclose(pa[-1], pb[-1], atol=1e-5)
+    assert a.global_model.surfel_count == b.global_model.surfel_count
+    assert [e["tick"] for e in b.global_model.pose_log] == [1, 2, 3, 4, 5]
+
+
+@pytest.mark.parametrize("writer,reader", [("jax", "port"), ("port", "jax")])
+def test_checkpoint_resumes_across_packages(checkpoints, writer, reader):
+    """A checkpoint written by one package resumes in the other: the fern
+    database and the map come across whole, and over the next two frames
+    the resumed engine's poses follow the writer's own continuation within
+    the lockstep bounds (1 mm, 0.05 deg; tests/test_torch_engine_static.py)
+    and its surfel count within 1%."""
+    from maskfusion_tpu.io import checkpoint as jckpt
+    from maskfusion_tpu_torch.io import checkpoint as tckpt
+
+    import chip_smoke
+
+    path, ref_poses, ref_count, ref_ferns = checkpoints[writer]
+    if reader == "port":
+        eng, cls, load = _port_engine(), FrameData, tckpt.load
+    else:
+        eng, cls, load = _jax_engine(), JFrameData, jckpt.load
+    load(eng, path)
+    assert eng.tick == 3 and len(eng.ferns.frames) >= 1
+    assert len(eng.global_model.pose_log) == 3
+    poses = _run(eng, cls, checkpoints["frames"][3:])
+    for a, b in zip(poses, ref_poses):
+        assert np.linalg.norm(a[:3, 3] - b[:3, 3]) <= 1e-3
+        assert chip_smoke._rot_deg(a, b) <= 0.05
+    assert abs(eng.global_model.surfel_count - ref_count) <= 0.01 * ref_count
+    assert len(eng.ferns.frames) == ref_ferns
