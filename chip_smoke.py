@@ -125,9 +125,34 @@ stopped; any failure raises and exits non-zero):
  13d. `-static -rl` through the CLI on phase 8's log, then the same run
      saved half way (--save-state) and resumed (--load-state): the resumed
      poses within 1e-5 m of the uninterrupted run's;
- 14. with --vga-sequence only (about 110 s more): the sequence-level check
-     at 640x480, make_sequence's 200 frames through the CLI with -method
-     precomputed as scripts/parity_vga.py runs it: camera ATE-RMSE, object
+ 15a. the viewer (viewer.render_map_view) at 160x120, card against CPU:
+     a map the CPU -static engine built in two frames, carried to a card
+     engine (convert), rendered from the live pose and from an orbit pose:
+     depth within 1e-5 on all but 3e-3 of the pixels, ties (the winner
+     differs) on at most fault 4's 3.09%, colour within one level off
+     them; one scan launch a render;
+ 15b. the viewer at 640x480 at the CLI's default capacities (9,437,184
+     global, 1<<20 object surfels) on the -static engine and on the
+     prefused multi-object engine (its pending frames left pending):
+     render_map_view's time over the engine's bucket (map_extent, which
+     must bound the count) and over the whole capacity (CUDA events), the
+     three kernels' launches in one LiveViewer frame and one viewport, the
+     canvas with its model strip;
+ 15c. `-static -viewer -ev` through the CLI with no capacity flag on phase
+     8's log: rc 0, poses within 1e-5 m of phase 8's run at 2^22 surfels,
+     one Viewport*.png a frame, the launches, peak memory;
+ 15d. the soak (scripts/soak_capacity.py on the card): 150 wide-sweep
+     frames through the -static engine at 9,437,184 slots; count, bucket
+     and ms a frame every 10 frames, the buckets visited (at least two),
+     FPS, peak memory, the first 120 frames' buckets beside the JAX run's
+     (PARITY.md);
+ 15e. live capture: 20 of phase 3's frames through OpenNI2LiveReader over
+     a fake `openni` binding that paces itself on the reader, into the
+     -static engine: indices increasing, stop() joins, poses within 1e-5 m
+     of the same frames fed directly, the launches of the live run alone;
+ 14. with --vga-sequence only (about 110 s more; after phase 15): the
+     sequence-level check at 640x480, make_sequence's 200 frames through
+     the CLI with -method precomputed as scripts/parity_vga.py runs it: camera ATE-RMSE, object
      displacement RMSE and instance IoU, held within 2x of the JAX
      package's (PARITY.md).
 The last lines are the four bench lines, the card's nvidia-smi line, one
@@ -1462,7 +1487,7 @@ def read_tum(path):
         np.float64) for t in stamps]
 
 
-def phase_cli(kernels, frames, direct, workdir: Path):
+def phase_cli(kernels, frames, direct, workdir: Path, phase8_poses: list):
     """The -static CLI on the card, the way a user runs it
     (maskfusion_tpu_torch.main on a .klg log, no OpenCV): a raw KLG log of
     `frames` (distinct non-zero stamps), then
@@ -1476,22 +1501,15 @@ def phase_cli(kernels, frames, direct, workdir: Path):
       within 1e-5 (the TUM text round trip), and the scan runs on every
       frame after the first (fuse, clean and predict of the general step).
     """
-    import dataclasses
-
     from maskfusion_tpu_torch import main as cli
     from maskfusion_tpu_torch.io.export import load_ply
-    from maskfusion_tpu_torch.io.klg_reader import write_klg
 
     n = len(frames)
     if len(direct["poses"]) != n:
         raise AssertionError(f"the direct run logged {len(direct['poses'])} "
                              f"poses for {n} frames")
     log_path = workdir / "static.klg"
-    stamped = [dataclasses.replace(f, timestamp=33333.0 * (i + 1))
-               for i, f in enumerate(frames + frames[-1:])]
-    # the KLG reader, as the reference's (KlgLogReader::hasMore), never
-    # returns a log's last frame: the log carries one frame more
-    write_klg(str(log_path), stamped, compress=False)
+    write_log(frames, log_path)
     out = {"frames": n}
     runs = (("static", ["-ep", "-em"]),
             ("ground_truth", ["-ep", "-p", str(workdir / "static" /
@@ -1537,6 +1555,8 @@ def phase_cli(kernels, frames, direct, workdir: Path):
             inputs = (stamps, poses)
             out[name].update(max_pose_diff_m=dpos, max_rot_diff_deg=drot,
                              cloud_surfels=k, direct_surfels=want)
+            # phase 15c holds the CLI at its default capacities to these
+            phase8_poses[:] = poses
         else:
             err = max(float(np.abs(a - b).max())
                       for a, b in zip(poses, inputs[1]))
@@ -1582,12 +1602,9 @@ def run_cli_log(kernels, frames, workdir: Path, name: str, flags):
     import io
 
     from maskfusion_tpu_torch import main as cli
-    from maskfusion_tpu_torch.io.klg_reader import write_klg
 
     log_path = workdir / f"{name}.klg"
-    stamped = [dataclasses.replace(f, timestamp=33333.0 * (i + 1))
-               for i, f in enumerate(frames + frames[-1:])]
-    write_klg(str(log_path), stamped, compress=False)
+    write_log(frames, log_path)
     export = workdir / name
     argv = ["-l", str(log_path), "-q", *flags, "-exportdir", str(export),
             "-ep", "--global-capacity", str(1 << 22)]
@@ -2894,6 +2911,555 @@ def phase_vga_sequence(kernels, workdir: Path) -> dict:
             "object": obj, "iou": iou}
 
 
+# ------------------------------------------------- viewer, defaults, soak
+KERNEL_NAMES = ("bilateral_depth", "predict_l0_scan", "geometric_edge_map")
+CLI_GLOBAL_CAPACITY = 9437184          # the CLI's defaults (main.py)
+CLI_OBJECT_CAPACITY = 1 << 20
+VIEWER_DEPTH_SHARE = 3e-3              # tests/test_pallas.py's tie rule
+# fault 4 (ROADMAP) records the scan's winner flipping on 3.09% of the
+# pixels of the smooth 160x120 scene between the card and the plain
+# version, depths agreeing; a flipped winner may show another colour
+VIEWER_TIE_SHARE = 3.09e-2
+SOAK_FRAMES = 150
+SOAK_JAX_BUCKETS = [327680, 409600, 512000]   # PARITY.md, first 120 frames
+
+
+def hold_viewer_views(out, ref) -> dict:
+    """Two render_map_view results of one map: depth within 1e-5 on all but
+    VIEWER_DEPTH_SHARE of the pixels; a tie pixel is one whose winner
+    differs (depth or normal more than 1e-5 apart), at most
+    VIEWER_TIE_SHARE of them; colour within one level on the others."""
+    depth_off = np.abs(out["depth"] - ref["depth"]) > 1e-5
+    tie = depth_off | (np.abs(out["normal"] - ref["normal"]).max(-1) > 1e-5)
+    diff = np.abs(out["rgb"].astype(int) - ref["rgb"].astype(int))
+    rgb_off = diff[~tie].max(initial=0)
+    rec = {"depth_differ": float(depth_off.mean()), "tie": float(tie.mean()),
+           "rgb_differ": float((diff.max(-1) > 0).mean()),
+           "max_rgb_diff_off_ties": int(rgb_off)}
+    if not (rec["depth_differ"] < VIEWER_DEPTH_SHARE
+            and rec["tie"] <= VIEWER_TIE_SHARE and rgb_off <= 1):
+        raise AssertionError(f"the views differ beyond the bound: {rec}")
+    return rec
+
+
+def viewer_map(MaskFusion, Config, Resolution, CameraIntrinsics, FrameData,
+               device):
+    """The CPU -static engine after two frames of the 160x120 wavy scene
+    (tests/test_cli.py's viewer scenario)."""
+    _, frames, (fx, fy, cx, cy, w, h) = synthetic_trajectory(2)
+    eng = MaskFusion(Resolution(w, h), CameraIntrinsics(fx, fy, cx, cy),
+                     Config(global_surfel_capacity=1 << 16, static_mode=True,
+                            use_so3=False), device=device)
+    for i, (rgb, depth) in enumerate(frames):
+        eng.process_frame(FrameData(rgb=rgb, depth=depth,
+                                    timestamp=float(i)))
+    return eng
+
+
+def orbit_pose(live: np.ndarray) -> np.ndarray:
+    """A free orbit view of the map: the live camera's orbit turned and
+    pulled back (the 'm' key's camera, as tests/test_cli.py moves it)."""
+    from maskfusion_tpu_torch.viewer import OrbitCamera
+
+    cam = OrbitCamera.from_pose(live)
+    cam.rotate(0.25, 0.1)
+    cam.dolly(1.3)
+    return cam.pose()
+
+
+def phase_viewer_parity(dev, kernels, MaskFusion, Config, Resolution,
+                        CameraIntrinsics, FrameData) -> dict:
+    """15a: render_map_view at 160x120 on the card against the CPU, on a
+    map the CPU engine built and convert carried to a card engine: from
+    the live pose and from an orbit pose; each card render launches the
+    scan once."""
+    import torch
+
+    from maskfusion_tpu_torch import viewer
+    from maskfusion_tpu_torch.convert import engine_snapshot, \
+        restore_engine
+
+    cpu_eng = viewer_map(MaskFusion, Config, Resolution, CameraIntrinsics,
+                         FrameData, torch.device("cpu"))
+    card = MaskFusion(cpu_eng.res, cpu_eng.intr, cpu_eng.cfg, device=dev)
+    restore_engine(card, engine_snapshot(cpu_eng))
+    live = cpu_eng.current_pose
+    out = {}
+    for name, pose in (("live", live), ("orbit", orbit_pose(live))):
+        ref = viewer.render_map_view(
+            cpu_eng.models[0].state.map, pose, cpu_eng.intr,
+            cpu_eng.res.width, cpu_eng.res.height)
+        before = kernels.predict_l0_scan.launches
+        got = viewer.render_map_view(
+            card.models[0].state.map, pose, card.intr, card.res.width,
+            card.res.height)
+        launched = kernels.predict_l0_scan.launches - before
+        rec = hold_viewer_views(got, ref)
+        rec["scan_launches"] = launched
+        rec["visible"] = float((got["depth"] > 0).mean())
+        log(f"  {name} view: {rec['depth_differ']:.2e} of the pixels differ "
+            f"in depth, {rec['tie']:.2e} tie (winner differs), "
+            f"{rec['rgb_differ']:.2e} differ in colour (at most "
+            f"{rec['max_rgb_diff_off_ties']} level off the ties); "
+            f"{rec['visible']:.3f} of the view shows the map; "
+            f"{launched} scan launch")
+        if launched != 1:
+            raise AssertionError(f"a card render launched the scan "
+                                 f"{launched} times")
+        if rec["visible"] < 0.3:
+            raise AssertionError(f"the {name} view shows too little map")
+        out[name] = rec
+    return out
+
+
+def time_viewer_frame(engine, kernels) -> dict:
+    """The viewer on the engine's global map from its live pose: the
+    render and its one fetch (render_index_map, combined_predict, the
+    three images to the host) over the engine's bucket (map_extent, the
+    port's form) and over the whole capacity (the JAX viewer's form), and
+    the whole render_map_view as the viewer calls it (with the host's
+    shading), each the median of 5 calls timed with CUDA events after one
+    warm call; one LiveViewer frame after a warm one (host clock); each
+    kernel's launches in that frame and in one -ev viewport; the canvas
+    shape."""
+    import torch
+
+    from maskfusion_tpu_torch import gui, viewer
+    from maskfusion_tpu_torch.mapping import surfel_map as sm
+    from maskfusion_tpu_torch.ops import splat
+
+    glob = engine.models[0]
+    m, intr = glob.state.map, engine.intr
+    H, W = engine.res.height, engine.res.width
+    pose = glob.state.pose.cpu().numpy()
+    count = int(m.count)
+    extent = viewer.map_extent(glob)
+    if extent is None or not count <= extent < m.capacity:
+        raise AssertionError(f"the bucket {extent} does not bound the count "
+                             f"{count} below the capacity {m.capacity}")
+    pose_inv = torch.as_tensor(np.linalg.inv(pose).astype(np.float32),
+                               device=m.pos.device)
+
+    def render(view):
+        im = splat.render_index_map(
+            view, pose_inv, intr, H, W, time=float("inf"),
+            time_delta=float("inf"), max_depth=12.0)
+        pred = splat.combined_predict(im, intr, 12.0)
+        return torch.cat([pred.rgb, pred.nmap, pred.depth[..., None]],
+                         dim=-1).cpu()
+
+    def event_ms(fn):
+        fn()
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    def counts():
+        return {k: getattr(kernels, k).launches for k in KERNEL_NAMES}
+
+    def launched(fn):
+        before = counts()
+        fn()
+        return {k: n - before[k] for k, n in counts().items()}
+
+    prefix_ms = event_ms(lambda: render(sm.prefix_view(m, extent)))
+    full_ms = event_ms(lambda: render(m))
+    view_ms = event_ms(lambda: viewer.render_map_view(m, pose, intr, W, H,
+                                                      extent=extent))
+    live = gui.LiveViewer(engine, offscreen=True)
+    live.update()                     # warm: OpenCV's first text and resize
+    pending = len(getattr(engine, "_pending", ()))
+    t0 = time.perf_counter()
+    frame_launches = launched(live.update)
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    if len(getattr(engine, "_pending", ())) != pending:
+        raise AssertionError("the viewer frame drained the pipeline")
+    ev_launches = launched(lambda: viewer.viewport(engine))
+    rec = {"count": count, "extent": extent, "capacity": m.capacity,
+           "render_ms": prefix_ms, "render_full_capacity_ms": full_ms,
+           "render_map_view_ms": view_ms, "viewer_frame_ms": frame_ms,
+           "launches_viewer_frame": frame_launches,
+           "launches_viewport": ev_launches,
+           "canvas": list(live.last_canvas.shape), "models":
+           len(engine.models), "pending_frames": pending}
+    log(f"  {count} live surfels in a bucket of {extent} of {m.capacity}: "
+        f"render and fetch {prefix_ms:.2f} ms over the bucket, "
+        f"{full_ms:.2f} ms over the whole capacity; render_map_view "
+        f"{view_ms:.2f} ms (CUDA events, medians of 5); a LiveViewer frame "
+        f"{frame_ms:.1f} ms (host clock), canvas {rec['canvas']} with "
+        f"{len(engine.models)} models, {pending} frames pending; launches "
+        f"{frame_launches} in a viewer frame, {ev_launches} in a viewport")
+    want = {"bilateral_depth": 0, "predict_l0_scan": 1,
+            "geometric_edge_map": 0}
+    if frame_launches != want or ev_launches != want:
+        raise AssertionError(f"a viewer frame or a viewport launched "
+                             f"{frame_launches} / {ev_launches}, {want} "
+                             "expected")
+    want_h = 2 * H + 24 + (H // 2 if len(engine.models) > 1 else 0)
+    if rec["canvas"] != [want_h, 2 * W, 3]:
+        raise AssertionError(f"canvas {rec['canvas']}, {want_h} rows "
+                             "expected")
+    return rec
+
+
+def phase_viewer_vga(dev, kernels, MaskFusion, Config, Resolution,
+                     CameraIntrinsics, frames, mo_frames, mo_intr) -> dict:
+    """15b: the viewer at 640x480 at the CLI's default capacities, on the
+    -static engine after 12 of phase 3's frames and on the prefused
+    multi-object engine (bench.py's two-object configuration) after 16
+    of phase 6b's frames, read without a drain."""
+    from maskfusion_tpu_torch import bench
+
+    out = {}
+    static = MaskFusion(Resolution(640, 480),
+                        CameraIntrinsics(*bench.STATIC_INTRINSICS),
+                        Config(static_mode=True,
+                               global_surfel_capacity=CLI_GLOBAL_CAPACITY),
+                        device=dev)
+    for f in frames[:12]:
+        static.process_frame(f)
+    static.flush_diagnostics()
+    out["static"] = time_viewer_frame(static, kernels)
+    del static
+    cfg = dataclasses.replace(bench.two_object_config(),
+                              global_surfel_capacity=CLI_GLOBAL_CAPACITY,
+                              object_surfel_capacity=CLI_OBJECT_CAPACITY)
+    mo = MaskFusion(Resolution(640, 480), CameraIntrinsics(*mo_intr), cfg,
+                    device=dev)
+    for f in mo_frames[:16]:
+        mo.process_frame(f)
+    if len(mo.models) < 2:
+        raise AssertionError(f"no object model live after 16 frames: "
+                             f"{len(mo.models)} models")
+    out["prefused"] = time_viewer_frame(mo, kernels)
+    mo.drain_pipeline()
+    return out
+
+
+def write_log(frames, path: Path) -> None:
+    """A raw KLG log of `frames` with distinct non-zero stamps and one
+    frame more: the KLG reader, as the reference's
+    (KlgLogReader::hasMore), never returns a log's last frame."""
+    from maskfusion_tpu_torch.io.klg_reader import write_klg
+
+    stamped = [dataclasses.replace(f, timestamp=33333.0 * (i + 1))
+               for i, f in enumerate(frames + frames[-1:])]
+    write_klg(str(path), stamped, compress=False)
+
+
+def phase_cli_defaults(kernels, frames, phase8_poses, workdir: Path) -> dict:
+    """15c: `-static -viewer -ev` on phase 8's log at the CLI's default
+    capacities (no capacity flag), the viewer offscreen as on any machine
+    without a display: rc 0, poses within 1e-5 m of phase 8's run at
+    2^22 surfels, one Viewport*.png a frame, the launches, peak memory."""
+    import os
+
+    import torch
+
+    from maskfusion_tpu_torch import main as cli
+
+    n = len(frames)
+    log_path = workdir / "defaults.klg"
+    write_log(frames, log_path)
+    export = workdir / "defaults"
+    # -ev writes only into an export directory that exists, as in the JAX
+    # CLI (ROADMAP fault 15)
+    export.mkdir()
+    argv = ["-l", str(log_path), "-static", "-q", "-viewer", "-ev", "-ep",
+            "-exportdir", str(export)]
+    env = {k: os.environ.pop(k) for k in ("DISPLAY", "WAYLAND_DISPLAY")
+           if k in os.environ}
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        seconds = time.perf_counter() - t0
+    finally:
+        os.environ.update(env)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    launches = {k: getattr(kernels, k).launches for k in KERNEL_NAMES}
+    if rc != 0:
+        raise AssertionError(f"the CLI at its defaults returned {rc}")
+    _, poses = read_tum(export / "poses-0.txt")
+    shots = sorted(export.glob("Viewport*.png"))
+    dpos = max(np.linalg.norm(a[:3, 3] - b[:3, 3])
+               for a, b in zip(poses, phase8_poses))
+    log(f"  rc {rc}, {n} frames in {seconds:.2f} s; {len(shots)} viewports; "
+        f"poses within {dpos:.2e} m of phase 8's run at 2^22 surfels; "
+        f"launches {launches}; peak {peak:.0f} MB allocated")
+    if len(poses) != n or not dpos <= 1e-5:
+        raise AssertionError(f"{len(poses)} poses for {n} frames, {dpos} m "
+                             "from phase 8's run (bound 1e-5)")
+    if len(shots) != n:
+        raise AssertionError(f"{len(shots)} Viewport*.png for {n} frames")
+    # a frame: one scan for the engine, one for the viewer, one for -ev
+    want = {"bilateral_depth": n, "predict_l0_scan": 3 * n,
+            "geometric_edge_map": 0}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, {want} expected")
+    return {"seconds": seconds, "frames": n, "viewports": len(shots),
+            "max_pose_diff_m": dpos, "launches": launches,
+            "peak_mb": peak}
+
+
+def soak_frames(n: int, W: int = 640, H: int = 480):
+    """scripts/soak_capacity.py's wide-sweep frames: the camera pans so
+    most of each frame is new geometry."""
+    from maskfusion_tpu_torch.frame import FrameData
+
+    u, v = np.meshgrid(np.arange(W), np.arange(H))
+    frames = []
+    for i in range(n):
+        ph = i * 0.35
+        depth = (1.6 + 0.0004 * u + 0.0003 * v
+                 + 0.25 * np.sin(u * 0.013 + ph)
+                 * np.cos(v * 0.011 + 0.3 * ph)).astype(np.float32)
+        rgb = np.stack([(u * 3 + 11 * i) % 256, (v * 2 + 5 * i) % 256,
+                        (u + v + 7 * i) % 256], -1).astype(np.uint8)
+        frames.append(FrameData(rgb=rgb, depth=depth, timestamp=float(i)))
+    return frames
+
+
+def phase_soak(dev, kernels, MaskFusion, Config, Resolution,
+               CameraIntrinsics) -> dict:
+    """15d: scripts/soak_capacity.py on the card: 150 wide-sweep frames
+    through the -static engine at the CLI's default 9,437,184-slot map;
+    every 10 frames the count, the engine's bucket and the soak's bucket
+    (choose_bucket as the script computes it), ms a frame; the buckets
+    visited, FPS, peak memory.  Held: no error, the count under the
+    capacity and at or under the engine's bucket, finite poses, at least
+    two bucket steps."""
+    import torch
+
+    from maskfusion_tpu_torch.mapping import surfel_map as sm
+
+    t_gen = time.perf_counter()
+    frames = soak_frames(SOAK_FRAMES)
+    gen_s = time.perf_counter() - t_gen
+    cap = CLI_GLOBAL_CAPACITY
+    eng = MaskFusion(Resolution(640, 480),
+                     CameraIntrinsics(528.0, 528.0, 320.0, 240.0),
+                     Config(static_mode=True, global_surfel_capacity=cap),
+                     device=dev)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rows, soak_buckets, engine_buckets = [], set(), set()
+    t0 = t_last = time.perf_counter()
+    for i, f in enumerate(frames):
+        eng.process_frame(f)
+        if eng.models[0].last_bucket:
+            engine_buckets.add(eng.models[0].last_bucket)
+        if i % 10 == 9:
+            eng.flush_diagnostics()
+            cnt = eng._last_count
+            b_engine = eng.models[0].last_bucket
+            b = sm.choose_bucket(cnt, cap, current=b_engine)
+            soak_buckets.add(b)
+            now = time.perf_counter()
+            rows.append({"frame": i + 1, "count": int(cnt),
+                         "bucket": int(b_engine), "soak_bucket": int(b),
+                         "ms_per_frame": (now - t_last) * 100.0})
+            t_last = now
+            log(f"  frame {i + 1:4d}: surfels {cnt:9d}, engine bucket "
+                f"{b_engine:9d}, soak bucket {b:9d}, "
+                f"{rows[-1]['ms_per_frame']:.1f} ms a frame")
+            if not (cnt < cap and b_engine >= cnt):
+                raise AssertionError(f"count {cnt}, bucket {b_engine}, "
+                                     f"capacity {cap}")
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    poses = eng.pose_log_numpy()
+    if len(poses) != SOAK_FRAMES or not np.isfinite(np.asarray(poses)).all():
+        raise AssertionError("the soak's poses are missing or not finite")
+    first120 = sorted({r["soak_bucket"] for r in rows if r["frame"] <= 120})
+    rec = {"frames": SOAK_FRAMES, "capacity": cap, "rows": rows,
+           "final_count": rows[-1]["count"],
+           "buckets_visited": sorted(soak_buckets),
+           "engine_buckets": sorted(engine_buckets),
+           "buckets_first_120": first120,
+           "jax_buckets_first_120": SOAK_JAX_BUCKETS,
+           "fps": SOAK_FRAMES / total, "peak_mb": peak,
+           "frames_generated_s": gen_s,
+           "launches": {k: getattr(kernels, k).launches for k in
+                        KERNEL_NAMES}}
+    log(f"  {SOAK_FRAMES} frames in {total:.1f} s = {rec['fps']:.2f} FPS "
+        f"(frames made in {gen_s:.1f} s); buckets visited "
+        f"{rec['buckets_visited']} (the engine's {rec['engine_buckets']}); "
+        f"first 120 frames {first120}, the JAX run's {SOAK_JAX_BUCKETS}"
+        f"{'' if first120 == SOAK_JAX_BUCKETS else ' (differ)'}; peak "
+        f"{peak:.0f} MB allocated; launches {rec['launches']}")
+    if len(rec["buckets_visited"]) < 2:
+        raise AssertionError(f"one bucket only: {rec['buckets_visited']}")
+    return rec
+
+
+def fake_openni(frames, reader_box: dict):
+    """A module in the shape of the primesense `openni` binding
+    (tests/test_live_capture.py's fake) serving `frames` (uint16 mm depth,
+    uint8 RGB) in turn.  It paces itself: a frame is served only once the
+    reader in `reader_box["reader"]` has taken the one before, so the
+    capture thread and the engine run side by side and the ring drops
+    none; after the last frame the streams stall."""
+    import threading
+    import types
+
+    ctl = {"next": 0, "cur": None, "lock": threading.Lock()}
+
+    class Frame:
+        def __init__(self, i, kind):
+            self.i, self.kind = i, kind
+            self.height, self.width = frames[i].depth.shape
+            self.timestamp = 33333 * (i + 1)          # microseconds
+
+        def get_buffer_as_uint16(self):
+            return np.ascontiguousarray(frames[self.i].depth).tobytes()
+
+        def get_buffer_as_uint8(self):
+            return np.ascontiguousarray(frames[self.i].rgb).tobytes()
+
+    class Stream:
+        def __init__(self, kind):
+            self.kind = kind
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+        def read_frame(self):
+            with ctl["lock"]:
+                if self.kind == "color":
+                    return None if ctl["cur"] is None else \
+                        Frame(ctl["cur"], "color")
+                reader = reader_box.get("reader")
+                i = ctl["next"]
+                if (i >= len(frames) or reader is None
+                        or reader.current_frame < i):
+                    ctl["cur"] = None
+                    return None
+                ctl["next"] = i + 1
+                ctl["cur"] = i
+                return Frame(i, "depth")
+
+    class Device:
+        def create_depth_stream(self):
+            return Stream("depth")
+
+        def create_color_stream(self):
+            return Stream("color")
+
+        def set_image_registration_mode(self, mode):
+            ctl["registration"] = mode
+
+    openni2 = types.SimpleNamespace(
+        initialize=lambda: None, unload=lambda: None,
+        IMAGE_REGISTRATION_DEPTH_TO_COLOR=7,
+        Device=types.SimpleNamespace(open_any=Device))
+    mod = types.ModuleType("openni")
+    mod.openni2 = openni2
+    return mod
+
+
+def live_capture_run(MaskFusion, Config, Resolution, CameraIntrinsics,
+                     FrameData, frames, intr, device, n: int,
+                     capacity: int = 1 << 22, kernels=None) -> dict:
+    """`n` of `frames` through OpenNI2LiveReader over fake_openni into the
+    -static engine, then the same frames fed directly (depth converted as
+    the reader converts it): frame indices, whether stop() joined the
+    capture thread, each run's poses, and with `kernels` each kernel's
+    launches in the live run alone (counted from 0 just before its loop,
+    read just after)."""
+    import sys
+
+    from maskfusion_tpu_torch.io.live_readers import OpenNI2LiveReader
+
+    frames = frames[:n]
+    res = Resolution(frames[0].width, frames[0].height)
+    cfg = Config(static_mode=True, global_surfel_capacity=capacity)
+    box: dict = {}
+    saved = sys.modules.get("openni")
+    sys.modules["openni"] = fake_openni(frames, box)
+    try:
+        reader = OpenNI2LiveReader(start=False)
+        box["reader"] = reader
+        reader.start()
+        eng = MaskFusion(res, CameraIntrinsics(*intr), cfg, device=device)
+        indices, live_poses = [], []
+        if kernels is not None:
+            kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            f = reader.get_next()
+            indices.append(f.index)
+            eng.process_frame(f)
+            live_poses.append(eng.current_pose.astype(np.float64))
+        seconds = time.perf_counter() - t0
+        launches = (None if kernels is None else
+                    {k: getattr(kernels, k).launches for k in KERNEL_NAMES})
+        thread = reader._thread
+        reader.stop()
+        joined = thread is not None and not thread.is_alive()
+    finally:
+        if saved is None:
+            sys.modules.pop("openni", None)
+        else:
+            sys.modules["openni"] = saved
+    direct = MaskFusion(res, CameraIntrinsics(*intr), cfg, device=device)
+    direct_poses = []
+    for i, f in enumerate(frames):
+        depth = np.asarray(f.depth).astype(np.float32) * 1e-3
+        direct.process_frame(FrameData(rgb=f.rgb, depth=depth,
+                                       timestamp=33333 * (i + 1) * 1e-3))
+        direct_poses.append(direct.current_pose.astype(np.float64))
+    dpos = max(np.linalg.norm(a[:3, 3] - b[:3, 3])
+               for a, b in zip(live_poses, direct_poses))
+    return {"indices": indices, "joined": joined, "seconds": seconds,
+            "max_pose_diff_m": float(dpos), "launches": launches}
+
+
+def phase_live_capture(dev, kernels, MaskFusion, Config, Resolution,
+                       CameraIntrinsics, FrameData, frames) -> dict:
+    """15e: 20 of phase 3's frames through OpenNI2LiveReader (a fake
+    `openni` binding) into the -static engine on the card.  Held: indices
+    strictly increasing, stop() joins, poses within 1e-5 m of the same
+    frames fed directly, the live run's launches one filter and one scan
+    a frame."""
+    from maskfusion_tpu_torch import bench
+
+    n = 20
+    rec = live_capture_run(MaskFusion, Config, Resolution, CameraIntrinsics,
+                           FrameData, frames, bench.STATIC_INTRINSICS, dev,
+                           n, kernels=kernels)
+    idx = rec["indices"]
+    log(f"  indices {idx}; {len(idx)} frames in {rec['seconds']:.2f} s "
+        f"through the reader; stop() joined: {rec['joined']}; poses within "
+        f"{rec['max_pose_diff_m']:.2e} m of the direct run; launches in the "
+        f"live run {rec['launches']}")
+    want = {"bilateral_depth": n, "predict_l0_scan": n,
+            "geometric_edge_map": 0}
+    if rec["launches"] != want:
+        raise AssertionError(f"the live run launched {rec['launches']}, "
+                             f"{want} expected")
+    if not all(b > a for a, b in zip(idx, idx[1:])):
+        raise AssertionError(f"frame indices not strictly increasing: {idx}")
+    if not rec["joined"]:
+        raise AssertionError("stop() left the capture thread running")
+    if not rec["max_pose_diff_m"] <= 1e-5:
+        raise AssertionError(f"live and direct poses differ by "
+                             f"{rec['max_pose_diff_m']} m")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3010,8 +3576,10 @@ def main() -> int:
               "--nn on its first 12")
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
+    phase8_poses: list = []
     with tempfile.TemporaryDirectory(dir=build) as workdir:
-        cli_run = phase_cli(kernels, frames, direct, Path(workdir))
+        cli_run = phase_cli(kernels, frames, direct, Path(workdir),
+                            phase8_poses)
         cli_run["nn"] = phase_cli_nn(kernels, frames[:12], Path(workdir))
     for rec in records:
         rec["launches_by_path"].update({
@@ -3085,6 +3653,38 @@ def main() -> int:
             reloc_multiobject=reloc["vga"]["multiobject"]["launches"][
                 rec["name"]],
             cli_rl=reloc["cli"]["launches"].get(rec["name"], 0))
+    log_phase("phase 15a: the viewer at 160x120, card against CPU")
+    views = {"parity": phase_viewer_parity(dev, kernels, MaskFusion, Config,
+                                           Resolution, CameraIntrinsics,
+                                           FrameData)}
+    log_phase("phase 15b: the viewer at 640x480 at the CLI's default "
+              "capacities, static and prefused multi-object")
+    kernels.reset_launch_counts()
+    views["vga"] = phase_viewer_vga(dev, kernels, MaskFusion, Config,
+                                    Resolution, CameraIntrinsics, frames,
+                                    mo_frames, intr)
+    log_phase("phase 15c: `-static -viewer -ev` through the CLI at its "
+              "default capacities on phase 8's log")
+    with tempfile.TemporaryDirectory(dir=build) as workdir:
+        views["cli_defaults"] = phase_cli_defaults(kernels, frames,
+                                                   phase8_poses,
+                                                   Path(workdir))
+    log_phase(f"phase 15d: the soak, {SOAK_FRAMES} wide-sweep frames at "
+              f"{CLI_GLOBAL_CAPACITY} global surfels")
+    views["soak"] = phase_soak(dev, kernels, MaskFusion, Config, Resolution,
+                               CameraIntrinsics)
+    log_phase("phase 15e: live capture through OpenNI2LiveReader (a fake "
+              "binding) into the -static engine")
+    views["live_capture"] = phase_live_capture(
+        dev, kernels, MaskFusion, Config, Resolution, CameraIntrinsics,
+        FrameData, frames)
+    for rec in records:
+        rec["launches_by_path"].update(
+            {f"viewer_{k}": views["vga"][k]["launches_viewer_frame"][
+                rec["name"]] for k in ("static", "prefused")},
+            cli_defaults=views["cli_defaults"]["launches"][rec["name"]],
+            soak=views["soak"]["launches"][rec["name"]],
+            live_capture=views["live_capture"]["launches"][rec["name"]])
     if "--vga-sequence" in sys.argv[1:]:
         log_phase(f"phase 14: the sequence check at 640x480 "
                   f"({VGA_SEQUENCE_FRAMES} frames through the CLI)")
@@ -3104,6 +3704,7 @@ def main() -> int:
     log(f"train: {json.dumps(train)}")
     log(f"cofusion: {json.dumps(cofusion)}")
     log(f"relocalisation: {json.dumps(reloc)}")
+    log(f"viewer, defaults, soak, live capture: {json.dumps(views)}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     for line in bench_lines:
         print(json.dumps(line), flush=True)

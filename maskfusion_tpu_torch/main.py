@@ -4,13 +4,15 @@ Port of ``maskfusion_tpu/main.py``, the equivalent of GUI/MainController.
 {h,cpp} + GUI/Main.cpp: flag parsing (MainController.cpp:34-97), intrinsics
 presets (:117-126), reader selection (:139-204), the main frame loop with
 the real-time frameskip governor (:423-607), and end-of-run exports
-(:591-606).  Headless.  The flags are the JAX package's; those whose code is
-not ported yet raise NotImplementedError naming the ROADMAP item that
-brings it.  The engine runs on the first CUDA card; ``main(argv,
-device="cpu")`` runs it on the CPU.
+(:591-606), with the live viewer (-viewer, gui.LiveViewer: an offscreen
+canvas where no display is set) and the viewport export (-ev).  The flags
+are the JAX package's, and every one runs.  The engine runs on the first
+CUDA card; ``main(argv, device="cpu")`` runs it on the CPU.
 
 Usage examples (same surface as the reference):
   python -m maskfusion_tpu_torch.main -l log.klg -static -ep -em
+  python -m maskfusion_tpu_torch.main -l log.klg -static -viewer -ev \\
+      -exportdir out
   python -m maskfusion_tpu_torch.main -dir /data/sequence -static -q -ep
   python -m maskfusion_tpu_torch.main -dir seq -method precomputed \\
       --pipeline off -maskdir masks
@@ -27,13 +29,6 @@ import argparse
 import os
 import sys
 import time
-
-
-# flags whose code is not ported yet: (args attribute, flag, ROADMAP item)
-_UNPORTED = (
-    ("viewer", "-viewer", "queue 1 item 13 (viewer and gui)"),
-    ("export_viewport", "-ev", "queue 1 item 13 (viewer and gui)"),
-)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -196,16 +191,6 @@ def make_config(args):
     )
 
 
-def check_ported(args) -> None:
-    """Raise NotImplementedError for a flag whose code is not ported yet,
-    naming the ROADMAP item that brings it.  (Every engine option, every
-    --pipeline schedule and -method runs.)"""
-    for attr, flag, item in _UNPORTED:
-        if getattr(args, attr):
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP {item})")
-
-
 def make_reader(args, resolution):
     """The reader the flags ask for; only its module is imported (the image
     reader needs OpenCV, a raw KLG log does not)."""
@@ -252,7 +237,6 @@ def main(argv=None, device=None):
     """Run the CLI.  `device` is the engine's torch device (default: the
     first CUDA card; there is no fallback to the CPU)."""
     args = build_parser().parse_args(argv)
-    check_ported(args)
     res, intr = resolve_intrinsics(args)
     cfg = make_config(args)
 
@@ -313,6 +297,12 @@ def main(argv=None, device=None):
         checkpoint.load(engine, args.load_state)
         print(f"resumed from {args.load_state} at tick {engine.tick}")
 
+    live = None
+    if args.viewer:
+        from maskfusion_tpu_torch.gui import LiveViewer
+
+        live = LiveViewer(engine, screenshot_dir=cfg.export_dir or ".")
+
     budget_ms = 1000.0 / cfg.target_fps
     n = 0
     t_start = time.perf_counter()
@@ -342,6 +332,9 @@ def main(argv=None, device=None):
         gt_pose = gt.get_pose(frame.timestamp) if gt else None
         diag = engine.process_frame(frame, gt_pose=gt_pose)
         n += 1
+        if live is not None and not live.update(diag):
+            print("viewer quit")
+            break
         if n % 25 == 0:
             print(f"[{n}] surfels={diag.get('surfels')} "
                   f"models={diag.get('n_models', 1)} "
@@ -356,6 +349,13 @@ def main(argv=None, device=None):
             if cfg.export_normals:
                 nmap = engine.models[0].state.pred_nmap.cpu().numpy()
                 ex.export_normal_image(cfg.export_dir, engine.tick, nmap)
+            if cfg.export_viewport:
+                from maskfusion_tpu_torch import viewer
+
+                viewer.save_viewport(
+                    engine,
+                    os.path.join(cfg.export_dir,
+                                 f"Viewport{engine.tick}.png"))
         # real-time governor (-fs; MainController.cpp:487-489)
         if cfg.frame_skip:
             skip = engine.stopwatch.should_skip_frames(budget_ms)
@@ -374,6 +374,9 @@ def main(argv=None, device=None):
                 n += 1
         nn_worker.stop()
         print(f"Mask R-CNN labelled {nn_worker.labelled} frames")
+
+    if live is not None:
+        live.close()
 
     # the clock stops once the device has run every queued frame.  As in
     # the JAX CLI, the pipelined schedules' pending host stages are not

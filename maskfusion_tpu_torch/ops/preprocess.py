@@ -7,6 +7,7 @@ Port of ``maskfusion_tpu/ops/preprocess.py``:
   - vertex / normal maps          (ref cudafuncs.cu:109-205)
   - map transform / 2x resize     (ref cudafuncs.cu:207-269, 366-445)
   - intensity + derivative images (ref cudafuncs.cu:626-715)
+  - depth to points               (ref cudafuncs.cu:718-736)
 
 Conventions: images are (H, W[, C]) tensors; vertex/normal maps are (H, W, 3)
 float32 with NaN marking invalid entries.  The model-side pyramid ops
@@ -257,6 +258,18 @@ def compute_derivative_images(
             dx = dx + tap * _GSOBEL_X[1 - j][1 - i]
             dy = dy + tap * _GSOBEL_Y[1 - j][1 - i]
     return torch.trunc(dx), torch.trunc(dy)
+
+
+def project_to_pointcloud(depth: torch.Tensor,
+                          intr: CameraIntrinsics) -> torch.Tensor:
+    """Depth -> (H, W, 3) camera-frame points, no validity gating
+    (ref projectPointsKernel, cudafuncs.cu:718-736)."""
+    H, W = depth.shape
+    u, v = _grid(H, W, depth.device)
+    z = depth.to(torch.float32)
+    x = (u - intr.cx) * z / intr.fx
+    y = (v - intr.cy) * z / intr.fy
+    return torch.stack([x, y, z], dim=-1)
 
 
 # ---------------------------------------------------------------------------

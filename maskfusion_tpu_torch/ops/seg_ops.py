@@ -6,7 +6,11 @@ multi-object frame runs (ref Core/Cuda/segmentation.cu):
     the hand-written kernel ops/kernels.geometric_edge_map, whose plain
     version is the JAX package's tap loop;
   - `morph_binary`        (dilate/erode uchar, :217-255, :334-354);
-  - `threshold_map`       (:257-269).
+  - `threshold_map`       (:257-269);
+  - `joint_bilateral_filter` (bilateralFilter_Kernel, :23-94), which no
+    code path calls: the reference runs it only when the segmentation
+    front-end filters its own depth (REUSE_FILTERED_MAPS=false,
+    MfSegmentation.cpp:56,154).  A stencil of torch ops, no kernel.
 """
 
 from __future__ import annotations
@@ -55,3 +59,37 @@ def morph_binary(mask: torch.Tensor, radius: int,
 
 def threshold_map(edge: torch.Tensor, threshold: float) -> torch.Tensor:
     return edge > threshold
+
+
+def joint_bilateral_filter(rgb: torch.Tensor, depth: torch.Tensor,
+                           radius: int = 8, sigma_depth: float = 0.1,
+                           sigma_color: float = 40.0,
+                           sigma_location: float = 5.0) -> torch.Tensor:
+    """Joint color/depth/space bilateral depth filter (segmentation.cu:
+    23-76); the defaults are the GUI's operative values (GUI.h:362-365).
+    Depth pads with inf and colour with 0; the taps accumulate in row-major
+    offset order, as the JAX package's scan does, so the sums round alike."""
+    isd = 0.5 / (sigma_depth * sigma_depth)
+    isc = 0.5 / (sigma_color * sigma_color)
+    isl = 0.5 / (sigma_location * sigma_location)
+    depth = depth.to(torch.float32)
+    rgbf = rgb.to(torch.float32)
+    sum_v = torch.zeros_like(depth)
+    sum_w = torch.zeros_like(depth)
+    inf = float("inf")
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            nd = shift(depth, dy, dx, inf)
+            dc = rgbf - shift(rgbf, dy, dx, 0.0)
+            # the squared offset as an f32 scalar, scaled in f32 as in the
+            # JAX package's scan body
+            loc = torch.tensor(float(dy * dy + dx * dx),
+                               dtype=torch.float32, device=depth.device)
+            col2 = dc[..., 0] ** 2 + dc[..., 1] ** 2 + dc[..., 2] ** 2
+            dep2 = (depth - nd) ** 2
+            w = torch.exp(-loc * isl - dep2 * isd - col2 * isc)
+            fin = torch.isfinite(nd)
+            w = torch.where(fin, w, 0.0)
+            sum_v = sum_v + torch.where(fin, nd, 0.0) * w
+            sum_w = sum_w + w
+    return sum_v / torch.clamp(sum_w, min=1e-20)

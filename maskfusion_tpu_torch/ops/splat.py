@@ -11,6 +11,7 @@ Port of ``maskfusion_tpu/ops/splat.py``:
   the hand-written kernel ops/kernels.predict_l0_scan), optionally widened by
   a coarse index map re-validated with the true pixel ray, then the winner's
   attributes are fetched with one packed row gather.
+- `synthesize_depth`: the prediction's depth image.
 """
 
 from __future__ import annotations
@@ -259,3 +260,8 @@ def combined_predict(index_map: IndexMap, intr: CameraIntrinsics, max_depth,
         depth=torch.where(holes, 0.0, best_z),
     )
 
+
+def synthesize_depth(pred: Prediction) -> torch.Tensor:
+    """Depth-only output (ModelProjection::synthesizeDepth,
+    depth_splat.frag)."""
+    return pred.depth

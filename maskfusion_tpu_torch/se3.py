@@ -92,6 +92,15 @@ def pose_inverse(T: torch.Tensor) -> torch.Tensor:
     return make_pose(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
 
 
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply a 4x4 pose to (..., 3) points (f32; TF32 is off)."""
+    return torch.einsum("...i,ji->...j", pts, T[:3, :3]) + T[:3, 3]
+
+
+def rotate_vectors(T: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """Rotate (..., 3) vectors by a 4x4 pose's rotation."""
+    return torch.einsum("...i,ji->...j", vecs, T[:3, :3])
+
 def _cholesky(A: torch.Tensor) -> torch.Tensor:
     # cholesky_ex reports failure in a device tensor instead of raising,
     # so the solve never waits on the device; callers screen the result

@@ -65,6 +65,10 @@ import maskfusion_tpu_torch.mapping.model_matching
 import maskfusion_tpu_torch.io.checkpoint
 import maskfusion_tpu_torch.tools.evaluate
 import maskfusion_tpu_torch.tools.make_sequence
+import maskfusion_tpu_torch.tools.sequence_add_bbox_labels
+import maskfusion_tpu_torch.viewer
+import maskfusion_tpu_torch.gui
+import maskfusion_tpu_torch.io.live_readers
 """
 
 # the -l path needs no OpenCV (the card's machine has none): with cv2
@@ -77,6 +81,10 @@ for name in ("cv2", "flax", "optax", "h5py", "msgpack"):
 import tempfile, os
 import numpy as np
 import maskfusion_tpu_torch.main
+import maskfusion_tpu_torch.viewer
+import maskfusion_tpu_torch.gui
+import maskfusion_tpu_torch.io.live_readers
+import maskfusion_tpu_torch.tools.sequence_add_bbox_labels
 from maskfusion_tpu_torch.frame import FrameData
 from maskfusion_tpu_torch.io.klg_reader import KlgLogReader, write_klg
 path = os.path.join(tempfile.mkdtemp(), "raw.klg")

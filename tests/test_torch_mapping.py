@@ -298,3 +298,18 @@ def test_fill_in_parity():
         a, b = n(a), n(b)
         assert_close_nan(a[~differ], b[~differ], atol=1e-4)
     assert abs(float(tfill.coverage(pt)) - float(jfill.coverage(pj))) < 3e-3
+
+
+def test_synthesize_depth_parity():
+    """splat.synthesize_depth, which no code path calls: the prediction's
+    depth image (0 in holes), against the JAX package's on the same index
+    map at the scan's bound."""
+    _, _, imj, _ = _renders(_frame())
+    out = tsplat.synthesize_depth(tsplat.combined_predict(
+        _tim_from_jax(imj), TINTR, 5.0))
+    ref = n(jsplat.synthesize_depth(jsplat.combined_predict(imj, INTR, 5.0)))
+    out = n(out)
+    assert out.shape == (H, W) and out.dtype == np.float32
+    assert (out > 0).mean() > 0.5
+    assert (np.abs(out - ref) > 1e-5).mean() < 3e-3
+    np.testing.assert_array_equal(out == 0, ref == 0)

@@ -228,3 +228,15 @@ def test_build_frame_pyramids_parity():
         np.testing.assert_array_equal(n(a["mask"]), n(b["mask"]))
         assert_close_nan(a["vmap"], b["vmap"], atol=1e-6)
         assert_close_nan(a["nmap"], b["nmap"], atol=1e-5)
+
+
+def test_project_to_pointcloud_exact():
+    """preprocess.project_to_pointcloud, which no code path calls: the same
+    f32 arithmetic, so bit-equal (no validity gating: zero depth gives
+    zero points)."""
+    depth = _scene_depth()
+    out = n(tpp.project_to_pointcloud(t(depth), TINTR))
+    ref = n(jpp.project_to_pointcloud(jnp.asarray(depth), INTR))
+    assert out.shape == depth.shape + (3,)
+    np.testing.assert_array_equal(out, ref)
+    assert (out[20:24, 30:40] == 0).all()

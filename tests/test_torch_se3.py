@@ -78,3 +78,22 @@ def test_quaternion_parity(rvec):
     np.testing.assert_allclose(n(tse3.to_quaternion(t(R))),
                                n(jse3.to_quaternion(jnp.asarray(R))),
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("fn", ["transform_points", "rotate_vectors"])
+def test_transform_points_and_rotate_vectors(fn):
+    """se3.transform_points and rotate_vectors, which no code path calls,
+    on (..., 3) batches in f32 (the JAX package's precision="highest";
+    TF32 is off in the port)."""
+    rng = np.random.default_rng(5)
+    rvec, tv = rng.normal(size=(2, 3)).astype(np.float32)
+    T = n(jse3.make_pose(jse3.rodrigues(jnp.asarray(rvec)), jnp.asarray(tv)))
+    pts = rng.normal(size=(7, 11, 3)).astype(np.float32)
+    out = n(getattr(tse3, fn)(t(T), t(pts)))
+    ref = n(getattr(jse3, fn)(jnp.asarray(T), jnp.asarray(pts)))
+    assert out.shape == pts.shape
+    np.testing.assert_allclose(out, ref, atol=1e-6)
+    want = pts @ T[:3, :3].T.astype(np.float64)
+    if fn == "transform_points":
+        want = want + T[:3, 3]
+    np.testing.assert_allclose(out, want, atol=1e-5)

@@ -109,3 +109,25 @@ def test_morph_binary_exact(radius, iterations):
                                        iterations))
     assert ours.dtype == np.bool_
     np.testing.assert_array_equal(ours, ref)
+
+
+@pytest.mark.parametrize("radius,sigmas", [(8, (0.1, 40.0, 5.0)),
+                                           (3, (0.05, 20.0, 2.0))],
+                         ids=["gui_defaults", "narrow"])
+def test_joint_bilateral_filter_matches_jax(radius, sigmas):
+    """seg_ops.joint_bilateral_filter, which no code path calls, against
+    the JAX package's on a rendered frame with a depth hole: the taps sum
+    in the same row-major order; the two exps round apart, so 1e-5 (both
+    are finite everywhere)."""
+    pts, cols, labels = syn.make_scene_with_object()
+    rgb, depth, _ = syn.render(pts, cols, np.eye(4), syn.DEFAULT_INTR,
+                               labels=labels)
+    depth = depth.astype(np.float32)
+    depth[20:24, 30:40] = 0.0
+    sd, sc, sl = sigmas
+    ref = n(jseg.joint_bilateral_filter(jnp.asarray(rgb), jnp.asarray(depth),
+                                        radius, sd, sc, sl))
+    out = n(tseg.joint_bilateral_filter(t(rgb), t(depth), radius, sd, sc,
+                                        sl))
+    assert out.dtype == np.float32 and np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, atol=1e-5)
