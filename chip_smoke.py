@@ -150,7 +150,30 @@ stopped; any failure raises and exits non-zero):
      a fake `openni` binding that paces itself on the reader, into the
      -static engine: indices increasing, stop() joins, poses within 1e-5 m
      of the same frames fed directly, the launches of the live run alone;
- 14. with --vga-sequence only (about 110 s more; after phase 15): the
+ 16a. the object models split over a models mesh (parallel.multimodel:
+     every card, or cuda:0 twice on one card) at 640x480 in bench.py's
+     two-object configuration (prefused) on phase 6b's first 12 frames,
+     against the same engine without a mesh, each frame finished before
+     the next: the same model ids, the global and object poses within
+     1e-5 m up to frame 4 and within 1 mm / 0.05 deg and 8 mm after; both
+     runs' ms a frame, the kernels' launches and peak MB per device; then
+     one more prefused frame of the split engine profiled: launches,
+     device busy time, synchronises (forced drains only).  Then a mesh of
+     the card and the CPU (real copies between devices; the CPU block
+     runs the kernels' plain versions) on phase 7's 160x120 scene, in the
+     synchronous schedule and the prefused one, against the unsplit
+     engine on the card: the same ids, the global pose at phase 7's
+     bounds, objects within 0.1 mm and counts within 1% up to frame 3, the
+     second slot's state left on the CPU;
+ 16b. the sharded train step (create_train_step(..., mesh=)) over NCCL at
+     world size = the card count, spawned through parallel.launch: two
+     micro_config(64) steps against the one-card step (after each step
+     the loss within 1e-5 relative, the parameters within the CPU test's
+     bounds); one full-width step at 512 px, batch 2: wall ms,
+     synchronises (none), peak MB a card; with one card the multi-card
+     branch is reported as not run;
+ 16c. parallel.dryrun.entry()'s forward on the card: finite outputs;
+ 14. with --vga-sequence only (about 110 s more; after phase 16): the
      sequence-level check at 640x480, make_sequence's 200 frames through
      the CLI with -method precomputed as scripts/parity_vga.py runs it: camera ATE-RMSE, object
      displacement RMSE and instance IoU, held within 2x of the JAX
@@ -3460,6 +3483,381 @@ def phase_live_capture(dev, kernels, MaskFusion, Config, Resolution,
     return rec
 
 
+# ----------------------------------------------------------- multi-device
+MESH_FRAMES = 12             # phase 16a: the first of phase 6b's frames
+# 16a holds split against unsplit on one card to frame
+# OBJECT_HOLD_LAST_FRAME at these (measured: 0.0 m globally and at most
+# 1.6e-8 m for the objects, PERF.md), and frames 5-11 at phase 7's 1 mm /
+# 0.05 deg and 8 mm, past which an object's solve amplifies the rounding
+# of the kernels' atomics
+MESH_HOLD_M, MESH_HOLD_DEG = 1e-5, 1e-3
+
+
+def mesh_devices():
+    """16a's models mesh: every card, or cuda:0 twice where there is one."""
+    import torch
+
+    n = torch.cuda.device_count()
+    names = [f"cuda:{i}" for i in range(n)] if n >= 2 else ["cuda:0"] * 2
+    return names
+
+
+def _mesh_rows(split, plain):
+    """Per frame of two _run_records runs, split and unsplit: the model
+    ids (which must agree; raises otherwise), the global pose difference
+    (m, deg), the largest object pose difference (m) and both runs'
+    surfel counts."""
+    rows = []
+    for i, (a, b) in enumerate(zip(split, plain)):
+        if a[0] != b[0] or a[1] != b[1]:
+            raise AssertionError(f"frame {i}: models {a[0]}/{a[1]} split, "
+                                 f"{b[0]}/{b[1]} unsplit")
+        pa, pb = a[2], b[2]
+        rows.append({
+            "frame": i, "models": a[0],
+            "global_m": float(np.linalg.norm(pa[0][:3, 3] - pb[0][:3, 3])),
+            "global_deg": _rot_deg(pa[0], pb[0]),
+            "object_m": max((float(np.nan_to_num(
+                np.linalg.norm(x[:3, 3] - y[:3, 3]), nan=np.inf))
+                for x, y in zip(pa[1:], pb[1:])
+                if not (np.isnan(x).any() and np.isnan(y).any())),
+                default=0.0),
+            "counts": [a[3], b[3]]})
+    return rows
+
+
+def _mesh_run(kernels, MaskFusion, Resolution, CameraIntrinsics, frames,
+              intr, dev, mesh):
+    """bench.py's two-object configuration (prefused) over `frames`, each
+    finished before the next, so that the split and unsplit runs' host
+    stages see the same lifecycle: per frame the _run_records record; ms a
+    frame (host clock to a synchronise), the kernels' launches and peak MB
+    a device over the run (above what was allocated before it); the
+    engine."""
+    import torch
+
+    from maskfusion_tpu_torch import bench
+
+    eng = MaskFusion(Resolution(640, 480), CameraIntrinsics(*intr),
+                     bench.two_object_config(), device=dev, mesh=mesh)
+    cards = sorted({d.index or 0 for d in
+                    (mesh.devices if mesh is not None else [dev])})
+    base = {}
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+        base[c] = torch.cuda.memory_allocated(c)
+    kernels.reset_launch_counts()
+
+    def step(i):
+        eng.process_frame(frames[i])
+        eng.drain_pipeline()
+        return eng
+
+    t0 = time.perf_counter()
+    records = _run_records(step, range(len(frames)))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    return records, eng, {
+        "ms_per_frame": ms, "fps": 1e3 / ms,
+        "launches": {k: getattr(kernels, k).launches for k in KERNEL_NAMES},
+        "peak_mb": {f"cuda:{c}": (torch.cuda.max_memory_allocated(c)
+                                  - base[c]) / 2 ** 20 for c in cards}}
+
+
+def phase_models_mesh(dev, kernels, MaskFusion, Resolution,
+                      CameraIntrinsics, frames, intr) -> dict:
+    """16a: the object models split over a models mesh (every card, or
+    cuda:0 twice on one card) at 640x480 in bench.py's two-object
+    configuration (prefused) on phase 6b's first MESH_FRAMES frames,
+    against the same engine without a mesh on the same card, each frame
+    finished before the next: the same model ids on every frame, the
+    global and object poses within MESH_HOLD_M (and MESH_HOLD_DEG) up to
+    frame OBJECT_HOLD_LAST_FRAME, then within 1 mm / 0.05 deg and 8 mm
+    (phase 7's bounds); both runs' ms a frame,
+    kernel launches and peak memory a device.  Then one more prefused
+    frame of the split engine under the profiler: its launches, device
+    busy time and synchronises (none but forced drains, as in 6b)."""
+    from maskfusion_tpu_torch.parallel.multimodel import ModelMesh
+
+    names = mesh_devices()
+    mesh = ModelMesh(names)
+    log(f"  models mesh: {names}" + (" (one card: cuda:0 twice)"
+                                     if len(set(names)) == 1 else ""))
+    parity = frames[:MESH_FRAMES]
+    # the unsplit run first: the split one is then profiled further
+    plain, _, plain_run = _mesh_run(kernels, MaskFusion, Resolution,
+                                    CameraIntrinsics, parity, intr, dev,
+                                    None)
+    split, eng, split_run = _mesh_run(kernels, MaskFusion, Resolution,
+                                      CameraIntrinsics, parity, intr, dev,
+                                      mesh)
+    rows = _mesh_rows(split, plain)
+    log(f"  split against unsplit, {len(parity)} frames each finished "
+        f"before the next: models {[r['models'] for r in rows]}")
+    for r in rows:
+        log(f"    frame {r['frame']}: global {r['global_m']:.3e} m "
+            f"{r['global_deg']:.3e} deg; objects {r['object_m']:.3e} m "
+            f"apart; surfels {r['counts'][0]} / {r['counts'][1]}")
+    for name, run in (("split", split_run), ("unsplit", plain_run)):
+        log(f"  {name}: {run['ms_per_frame']:.1f} ms a frame finished one "
+            f"by one ({run['fps']:.2f} FPS), launches {run['launches']}, "
+            f"peak MB {run['peak_mb']}")
+    if max(len(r["models"]) for r in rows) < 3:
+        raise AssertionError("the split run never held two objects")
+    for r in rows:
+        if r["frame"] <= OBJECT_HOLD_LAST_FRAME:
+            held = (r["global_m"] <= MESH_HOLD_M and r["object_m"]
+                    <= MESH_HOLD_M and r["global_deg"] <= MESH_HOLD_DEG)
+        else:
+            held = (r["global_m"] <= 1e-3 and r["global_deg"] <= 0.05
+                    and r["object_m"] <= 8e-3)
+        if not held:
+            raise AssertionError(f"split and unsplit runs differ: {r}")
+    for name, count in split_run["launches"].items():
+        if count == 0:
+            raise AssertionError(f"{name} never launched in the split run")
+    waits0 = eng.forced_waits
+    prof = profile_frames(eng, frames[MESH_FRAMES:MESH_FRAMES + 1],
+                          split_run["ms_per_frame"])
+    forced = eng.forced_waits - waits0
+    eng.drain_pipeline()
+    if prof["synchronises_per_frame"] > forced:
+        raise AssertionError(f"synchronises outside forced drains: {prof}")
+    split_run.update(profile=prof, forced_drains_profiled=forced)
+    return {"devices": names, "parity": rows, "split": split_run,
+            "unsplit": plain_run}
+
+
+# 16a's mesh across devices: the schedules of phase 7's forms it runs,
+# and how far it holds the objects.  From frame 0 an object solved or fused
+# on the CPU parts from the card's by rounding that this scene's object
+# solve amplifies from frame 4 on: there every run is 20-28 mm off the
+# true motion, and phase 7's card against the CPU from frame 0 parts by
+# 12 mm (PERF.md)
+ACROSS_FORMS = {"synchronous": "batched_windowed", "prefused": "pipelined"}
+ACROSS_HOLD_LAST_FRAME, ACROSS_HOLD_M = 3, 1e-4
+
+
+def phase_models_mesh_across(dev, MaskFusion, Config, Resolution,
+                             CameraIntrinsics, FrameData) -> dict:
+    """16a across devices: phase 7's 160x120 two-object scene, frames 0-6,
+    with the two object slots split over ModelMesh([card, "cpu"]) -- every
+    frame copies the frame's images, the slot's state and its results
+    between the card and the host, and the CPU block runs the kernels'
+    plain versions -- in the synchronous schedule (batched, windowed) and
+    the prefused one, against the unsplit engine on the card, each frame
+    finished before the next.  Held: the same model and class ids on every
+    frame, the global pose within 1 mm / 0.05 deg (phase 7's), up to
+    ACROSS_HOLD_LAST_FRAME the objects within ACROSS_HOLD_M and the
+    surfel counts within 1%; after the run the second slot's state is on
+    the CPU and the first's on the card.  Both schedules run and are
+    logged before a failure is raised."""
+    import torch
+
+    from maskfusion_tpu_torch.parallel.multimodel import ModelMesh
+
+    frames = synthetic_two_objects(7)
+    fx, fy, cx, cy, w, h = SMALL
+    card = torch.device("cuda", torch.cuda.current_device())
+    out, failures = {}, []
+    for name, form in ACROSS_FORMS.items():
+        t0 = time.perf_counter()
+
+        def run(mesh):
+            eng = MaskFusion(
+                Resolution(w, h), CameraIntrinsics(fx, fy, cx, cy),
+                multiobject_config(Config, global_surfel_capacity=1 << 16,
+                                   object_surfel_capacity=1 << 13,
+                                   model_spawn_offset=0, use_so3=False,
+                                   open_loop=True, **PARITY_FORMS[form]),
+                device=dev, mesh=mesh)
+
+            def step(i):
+                rgb, depth, lab = frames[i]
+                eng.process_frame(FrameData(rgb=rgb, depth=depth, mask=lab,
+                                            class_ids=[0, 7, 8],
+                                            timestamp=float(i)))
+                eng.drain_pipeline()
+                return eng
+            return eng, _run_records(step, range(len(frames)))
+
+        _, plain = run(None)
+        eng, split = run(ModelMesh([card, "cpu"]))
+        rows = _mesh_rows(split, plain)
+        placed = [str(m.state.pose.device) for m in eng.models[1:]]
+        log(f"  {name}, split over [{card}, cpu] against unsplit on the "
+            f"card: models {[r['models'] for r in rows]}, object states "
+            f"on {placed}; {time.perf_counter() - t0:.1f} s")
+        for r in rows:
+            log(f"    frame {r['frame']}: global {r['global_m']:.3e} m "
+                f"{r['global_deg']:.3e} deg; objects {r['object_m']:.3e} m "
+                f"apart; surfels {r['counts'][0]} / {r['counts'][1]}")
+        if rows[-1]["models"] != [0, 1, 2]:
+            failures.append(f"{name}: expected models [0, 1, 2], got "
+                            f"{rows[-1]['models']}")
+        if placed != [str(card), "cpu"]:
+            failures.append(f"{name}: object states on {placed}")
+        for r in rows:
+            held = r["global_m"] <= 1e-3 and r["global_deg"] <= 0.05
+            if r["frame"] <= ACROSS_HOLD_LAST_FRAME:
+                held = (held and r["object_m"] <= ACROSS_HOLD_M
+                        and all(abs(x - y) <= 0.01 * y
+                                for x, y in zip(*r["counts"])))
+            if not held:
+                failures.append(f"{name}: split across the card and the "
+                                f"CPU differs from unsplit: {r}")
+        out[name] = {"rows": rows, "placed": placed,
+                     "seconds": time.perf_counter() - t0}
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def _nccl_rank(rank: int, world: int, micro_batch, micro_draws,
+               full_batch) -> dict:
+    """16b in each rank: the micro_config(64) sharded run (two steps,
+    gathered parameters on rank 0) and a full-width step on the rank's
+    card: wall ms (host clock to a synchronise, after a first step), the
+    synchronises of a profiled step, peak MB."""
+    import torch
+
+    from maskfusion_tpu_torch.maskrcnn import model as mm
+    from maskfusion_tpu_torch.maskrcnn import synthetic_shapes as ss
+    from maskfusion_tpu_torch.parallel.mesh import make_mesh
+    from maskfusion_tpu_torch.parallel.train import (create_train_step,
+                                                     sharded_run)
+
+    out = {"micro": sharded_run(rank, world, ss.micro_config(64),
+                                micro_batch, micro_draws,
+                                device_type="cuda")}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(world)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    init_fn, step_fn = create_train_step(mm.MaskRCNNConfig(), mesh=mesh)
+    state = init_fn(0, 2)
+    batch = [torch.from_numpy(a).to(dev) for a in full_batch]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, loss = step_fn(state, gen, *batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = step_fn(state, gen, *batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    losses = [loss]
+
+    def one_step():
+        nonlocal state
+        state, step_loss = step_fn(state, gen, *batch)
+        losses.append(step_loss)
+
+    launches, syncs, _calls, busy_ms = profile_calls(one_step)
+    out["full_width"] = {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "launches": launches, "synchronises": syncs,
+        "peak_mb": (torch.cuda.max_memory_allocated() - base) / 2 ** 20,
+        "losses": [float(v) for v in losses], "card": str(dev)}
+    return out
+
+
+def phase_sharded_step(dev) -> dict:
+    """16b: create_train_step(..., mesh=make_mesh(n)) over NCCL at world
+    size = the card count, spawned through parallel.launch: two
+    micro_config(64) steps against the one-card step on the same batch and
+    draws (after each step the loss within 1e-5 relative, the parameters
+    within 2 lr a step taken and all but 1e-4 of them within 1e-6: the CPU
+    test's bounds); one full-width step (ResNet-50-FPN, 512 px, 81 classes,
+    batch 2 of phase 11c's make_batch scenes): wall ms, synchronises
+    (none may), peak MB per card.  With one card the mesh is (1, 1) and the
+    multi-card HSDP branch does not run (NCCL refuses two ranks on one
+    card); that is printed, not caught."""
+    import torch
+
+    from maskfusion_tpu_torch.maskrcnn import synthetic_shapes as ss
+    from maskfusion_tpu_torch.parallel.launch import run_ranks
+    from maskfusion_tpu_torch.parallel.mesh import mesh_shape
+    from maskfusion_tpu_torch.parallel.train import create_train_step
+
+    world = torch.cuda.device_count()
+    cfg, lr = ss.micro_config(64), 1e-4
+    micro_batch = ss.make_batch(np.random.default_rng(0), 2, 64)
+    n_draw = cfg.post_nms_proposals + micro_batch[1].shape[1]
+    draws = [torch.rand((2, 2, n_draw), generator=torch.Generator()
+                        .manual_seed(s)).numpy() for s in range(2)]
+    full_batch = ss.make_batch(np.random.default_rng(40), 2, 512)
+    t0 = time.perf_counter()
+    ranks = run_ranks(_nccl_rank, world, "nccl",
+                      (micro_batch, draws, full_batch), timeout_s=600.0)
+    spawn_s = time.perf_counter() - t0
+    _placements, steps = ranks[0]["micro"]
+    init_fn, step_fn = create_train_step(cfg, lr, device=dev)
+    state = init_fn(0, 2)
+    tensors = [torch.from_numpy(a).to(dev) for a in micro_batch]
+    rows = []
+    for i, d in enumerate(draws):
+        state, loss = step_fn(state, torch.from_numpy(d).to(dev), *tensors)
+        ref = {k: v.detach().cpu().numpy()
+               for k, v in state.params.state_dict().items()}
+        diff = np.concatenate([np.abs(steps[i][2][k] - ref[k]).ravel()
+                               for k in ref])
+        rows.append({"step": i, "sharded": steps[i][0],
+                     "one_card": float(loss),
+                     "param_max_diff": float(diff.max()),
+                     "param_share_over_1e-6": float((diff > 1e-6).mean())})
+    full = [r["full_width"] for r in ranks]
+    rec = {"world": world, "mesh": list(mesh_shape(world)),
+           "seconds": spawn_s, "micro": rows, "full_width": full}
+    log(f"  {world} NCCL rank(s), mesh (dp, mp) = {rec['mesh']}, "
+        f"{spawn_s:.1f} s with the spawn: micro losses and parameters "
+        f"against the one-card step after each step {rows}")
+    for f in full:
+        log(f"  full width on {f['card']}: {f['wall_ms']:.1f} ms a step "
+            f"(wall), the card busy {f['device_busy_ms']:.1f} ms, "
+            f"{f['launches']} launches, {f['synchronises']} synchronises, "
+            f"peak {f['peak_mb']:.0f} MB, losses "
+            f"{[round(v, 3) for v in f['losses']]}")
+    if world < 2:
+        log("  the multi-card HSDP branch did not run: one card here, and "
+            "NCCL refuses two ranks on one card")
+    for r in rows:
+        if not abs(r["sharded"] - r["one_card"]) <= 1e-5 * abs(
+                r["one_card"]):
+            raise AssertionError(f"sharded and one-card losses differ: {r}")
+        if not (r["param_max_diff"] <= 2 * lr * (r["step"] + 1)
+                and r["param_share_over_1e-6"] <= 1e-4):
+            raise AssertionError(f"sharded parameters differ: {r}")
+    for f in full:
+        if f["synchronises"]:
+            raise AssertionError(f"the sharded full-width step synchronised "
+                                 f"{f['synchronises']} times")
+        if not np.isfinite(f["losses"]).all():
+            raise AssertionError(f"non-finite losses {f['losses']}")
+    return rec
+
+
+def phase_entry(dev) -> dict:
+    """16c: parallel.dryrun.entry()'s forward on the card (256 px, 81
+    classes, seeded weights, a zero image): every output finite, ms a
+    forward after a first."""
+    import torch
+
+    from maskfusion_tpu_torch.parallel.dryrun import entry
+
+    forward, (model, image) = entry()
+    out = forward(model, image)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = forward(model, image)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    shapes = [tuple(o.shape) for o in out]
+    log(f"  entry forward: {ms:.1f} ms; outputs {shapes}")
+    if not all(torch.isfinite(o.float()).all() for o in out):
+        raise AssertionError("entry forward produced a non-finite value")
+    return {"ms": ms, "shapes": shapes}
+
+
 def main() -> int:
     import torch
 
@@ -3685,6 +4083,28 @@ def main() -> int:
             cli_defaults=views["cli_defaults"]["launches"][rec["name"]],
             soak=views["soak"]["launches"][rec["name"]],
             live_capture=views["live_capture"]["launches"][rec["name"]])
+    log_phase("phase 16a: the object models split over a models mesh at "
+              "640x480 (bench.py's two-object configuration, prefused)")
+    t16 = time.perf_counter()
+    multi = {"models_mesh": phase_models_mesh(
+        dev, kernels, MaskFusion, Resolution, CameraIntrinsics, mo_frames,
+        intr)}
+    log_phase("phase 16a: the object models split over the card and the "
+              "CPU (160x120, synchronous and prefused)")
+    multi["models_mesh_across"] = phase_models_mesh_across(
+        dev, MaskFusion, Config, Resolution, CameraIntrinsics, FrameData)
+    seconds = {"16a": time.perf_counter() - t16}
+    for rec in records:
+        rec["launches_by_path"]["models_mesh"] = \
+            multi["models_mesh"]["split"]["launches"][rec["name"]]
+    log_phase("phase 16b: the sharded Mask R-CNN train step over NCCL at "
+              f"world size {torch.cuda.device_count()}")
+    multi["sharded_step"] = phase_sharded_step(dev)
+    seconds["16b"] = time.perf_counter() - t16 - seconds["16a"]
+    log_phase("phase 16c: the entry forward (parallel.dryrun.entry) on the "
+              "card")
+    multi["entry"] = phase_entry(dev)
+    multi["seconds"] = dict(seconds, phase_16=time.perf_counter() - t16)
     if "--vga-sequence" in sys.argv[1:]:
         log_phase(f"phase 14: the sequence check at 640x480 "
                   f"({VGA_SEQUENCE_FRAMES} frames through the CLI)")
@@ -3705,6 +4125,7 @@ def main() -> int:
     log(f"cofusion: {json.dumps(cofusion)}")
     log(f"relocalisation: {json.dumps(reloc)}")
     log(f"viewer, defaults, soak, live capture: {json.dumps(views)}")
+    log(f"multi-device: {json.dumps(multi)}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     for line in bench_lines:
         print(json.dumps(line), flush=True)

@@ -36,6 +36,7 @@ import torch
 from maskfusion_tpu_torch.engine import MapState, MaskFusion, Model
 from maskfusion_tpu_torch.io import checkpoint
 from maskfusion_tpu_torch.mapping.surfel_map import SurfelMap
+from maskfusion_tpu_torch.maskrcnn.model import flax_axes
 
 MAP_FIELDS = SurfelMap._fields
 STATE_FIELDS = tuple(f for f in MapState._fields if f != "map")
@@ -147,7 +148,8 @@ def restore_engine(engine: MaskFusion, snap: Dict[str, Any]) -> None:
 
 
 __all__ = ["map_state_from_numpy", "state_to_numpy", "engine_snapshot",
-           "restore_engine", "maskrcnn_state_dict", "maskrcnn_flax_tree"]
+           "restore_engine", "maskrcnn_state_dict", "maskrcnn_flax_tree",
+           "maskrcnn_flax_path"]
 
 
 # ---------------------------------------------------------------- Mask R-CNN
@@ -222,13 +224,45 @@ def maskrcnn_state_dict(flax_tree, cfg) -> Dict[str, torch.Tensor]:
         if leaf == "kernel":
             leaf = "weight"
             if path[-2] == "deconv":
-                v = v[::-1, ::-1].transpose(2, 3, 0, 1)
-            elif v.ndim == 4:
-                v = v.transpose(3, 2, 0, 1)
-            else:
-                v = v.T
+                v = v[::-1, ::-1]
+            v = v.transpose(flax_axes(f"{name}.weight", v.ndim))
         out[f"{name}.{leaf}"] = torch.from_numpy(np.array(v, order="C"))
     return out
+
+
+def maskrcnn_flax_path(key: str, cfg) -> list:
+    """The JAX package's parameter-tree path (under ``params``) of the
+    port model's ``state_dict`` entry ``key``: flax module names, then the
+    leaf (``kernel`` for a weight)."""
+    norm = "FrozenBatchNorm" if cfg.norm == "frozen_bn" else "GroupNorm"
+    block = {"conv1": "Conv_0", "conv2": "Conv_1", "conv3": "Conv_2",
+             "down": "Conv_3", "norm1": f"{norm}_0", "norm2": f"{norm}_1",
+             "norm3": f"{norm}_2", "down_norm": f"{norm}_3"}
+    name, leaf = key.rsplit(".", 1)
+    leaf = "kernel" if leaf == "weight" else leaf
+    head, *rest = name.split(".")
+    if head == "backbone":
+        if rest[0] == "stem":
+            return [head, "Conv_0", leaf]
+        if rest[0] == "stem_norm":
+            return [head, f"{norm}_0", leaf]
+        if rest[0] == "lateral":
+            return [head, f"Conv_{int(rest[1]) + 1}", leaf]
+        if rest[0] == "output":
+            return [head, f"Conv_{int(rest[1]) + 5}", leaf]
+        if rest[0] == "blocks":
+            return [head, f"Bottleneck_{rest[1]}", block[rest[2]], leaf]
+    if head == "rpn":
+        return [head, "rpn_" + rest[0], leaf]
+    if head == "box_head" and rest[0].startswith("norm"):
+        return [head, f"{norm}_{int(rest[0][4:]) - 1}", leaf]
+    if head == "mask_head" and rest[0] == "norms":
+        return [head, f"{norm}_{rest[1]}", leaf]
+    if head == "mask_head" and rest[0] == "convs":
+        return [head, f"conv{int(rest[1]) + 1}", leaf]
+    if head in ("box_head", "mask_head"):
+        return [head, rest[0], leaf]
+    raise KeyError(key)
 
 
 def maskrcnn_flax_tree(state_dict, cfg) -> dict:
@@ -236,50 +270,17 @@ def maskrcnn_flax_tree(state_dict, cfg) -> dict:
     float32 arrays from the port model's ``state_dict``: the inverse of
     ``maskrcnn_state_dict``, exact both ways (transposes and flips only).
     What ``checkpoint_io.save_params`` writes and the JAX package's
-    ``checkpoint_io.load_params`` and ``MaskRCNN.apply`` read."""
-    norm = "FrozenBatchNorm" if cfg.norm == "frozen_bn" else "GroupNorm"
-    block = {"conv1": "Conv_0", "conv2": "Conv_1", "conv3": "Conv_2",
-             "down": "Conv_3", "norm1": f"{norm}_0", "norm2": f"{norm}_1",
-             "norm3": f"{norm}_2", "down_norm": f"{norm}_3"}
-
-    def path(name):
-        head, *rest = name.split(".")
-        if head == "backbone":
-            if rest[0] == "stem":
-                return [head, "Conv_0"]
-            if rest[0] == "stem_norm":
-                return [head, f"{norm}_0"]
-            if rest[0] == "lateral":
-                return [head, f"Conv_{int(rest[1]) + 1}"]
-            if rest[0] == "output":
-                return [head, f"Conv_{int(rest[1]) + 5}"]
-            if rest[0] == "blocks":
-                return [head, f"Bottleneck_{rest[1]}", block[rest[2]]]
-        if head == "rpn":
-            return [head, "rpn_" + rest[0]]
-        if head == "box_head" and rest[0].startswith("norm"):
-            return [head, f"{norm}_{int(rest[0][4:]) - 1}"]
-        if head == "mask_head" and rest[0] == "norms":
-            return [head, f"{norm}_{rest[1]}"]
-        if head == "mask_head" and rest[0] == "convs":
-            return [head, f"conv{int(rest[1]) + 1}"]
-        if head in ("box_head", "mask_head"):
-            return [head, rest[0]]
-        raise KeyError(name)
-
+    ``checkpoint_io.load_params`` and ``MaskRCNN.apply`` read.  A sharded
+    network's state_dict is gathered first
+    (``parallel.train.full_state_dict``)."""
     tree: dict = {}
     for key, t in state_dict.items():
-        name, leaf = key.rsplit(".", 1)
         v = t.detach().to("cpu", torch.float32).numpy()
-        p = path(name)
-        if leaf == "weight":
-            leaf = "kernel"
+        *p, leaf = maskrcnn_flax_path(key, cfg)
+        if leaf == "kernel":
+            v = v.transpose(np.argsort(flax_axes(key, v.ndim)))
             if p[-1] == "deconv":
-                v = v.transpose(2, 3, 0, 1)[::-1, ::-1]
-            elif v.ndim == 4:
-                v = v.transpose(2, 3, 1, 0)
-            else:
-                v = v.T
+                v = v[::-1, ::-1]
         node = tree
         for part in p:
             node = node.setdefault(part, {})

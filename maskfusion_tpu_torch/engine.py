@@ -72,8 +72,20 @@ CLI's ``-rl``) stays lost once lost.  Redetection (``enable_redetection``,
 engine.py:1077-1104, 1694-1725): a model made inactive gets a fern
 description (mapping/model_matching); a new mask component that matches
 one reactivates that model instead of spawning, in either schedule.
-Multi-device sharding of the object axis (`_shard_model_axis`) is ROADMAP
-queue 1 item 14.
+
+The object models split over devices (``mesh=ModelMesh(devices)``,
+parallel.multimodel; engine.py:136-155, 899-907, 1010-1012, 1049-1055 of
+the JAX package).  The JAX engine puts a GSPMD sharding constraint on the
+stacked object axis of its pipelined tracking and fuse graphs; one process
+drives every device.  The port keeps that single controller and places the
+work: `_shard_model_axis` splits the padded object slots into contiguous
+blocks, one a device of the mesh's models axis (none where the count does
+not tile the axis, as GSPMD's no-op), and `pipelined_device_stage` and
+`fuse_stage` run each block's solve, id projection and fuse on its device.
+The blocks' states stay on their devices between frames and move when the
+plan changes; each frame's inputs are copied to each device once; the
+global model, the hostvec and the id image stay on the engine's device.
+The synchronous frame tracks on the engine's device (its fuse splits).
 
 The JAX package jits each stage, donates the map buffers and prewarms its
 compile cache (`prewarm_next_buckets`, `_note_prewarm`).  PyTorch runs
@@ -88,6 +100,7 @@ object->world pose is global_pose @ inverse(object_pose).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time as _time
 from typing import Callable, Dict, List, NamedTuple, Optional
@@ -107,6 +120,7 @@ from maskfusion_tpu_torch.ops import fuse as fuse_ops
 from maskfusion_tpu_torch.ops import preprocess as pp
 from maskfusion_tpu_torch.ops import reduce as red
 from maskfusion_tpu_torch.ops import splat as splat_ops
+from maskfusion_tpu_torch.parallel import multimodel
 from maskfusion_tpu_torch.segmentation import create_segmenter
 from maskfusion_tpu_torch.segmentation.mf_segmentation import ModelInfo
 from maskfusion_tpu_torch.tracking import odometry as odo
@@ -145,6 +159,30 @@ def _halo_crop(a: torch.Tensor, oy: int, ox: int, size: int, halo: int,
     xs, xe = max(0, x0), min(W, x0 + size)
     out[ys - y0:ye - y0, xs - x0:xe - x0] = a[ys:ye, xs:xe]
     return out
+
+
+def _moved(x, dev: torch.device):
+    """`x` -- a tensor, or a (named) tuple, list or dict of them -- on
+    `dev`: each tensor copied there, or itself where it already is.  A
+    copy to a card does not wait for the host; one to the CPU does, since
+    the host reads it at once."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev, non_blocking=dev.type == "cuda")
+    if isinstance(x, dict):
+        return {k: _moved(v, dev) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_moved(v, dev) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_moved(v, dev) for v in x)
+    return x
+
+
+def _on_device(dev: torch.device):
+    """The context that work for `dev` runs in: a card made current, since
+    the hand-written kernels launch on the current card."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
 
 
 def _gated(gate: Optional[torch.Tensor], new: tuple, state) -> tuple:
@@ -240,13 +278,24 @@ class MaskFusion:
     MaskFusion, for the -static and the multi-object frame."""
 
     def __init__(self, resolution: Resolution, intr: CameraIntrinsics,
-                 config: Optional[Config] = None, device=None):
+                 config: Optional[Config] = None, device=None,
+                 mesh: Optional[multimodel.ModelMesh] = None,
+                 model_axis: str = "models"):
         self.res = resolution
         self.intr = intr
         self.cfg = config or Config()
         H, W = resolution.height, resolution.width
         self.device = torch.device(device) if device is not None \
             else default_device()
+        # the object models split over the devices of a models mesh
+        # (parallel.multimodel; engine.py:146-153 of the JAX package): the
+        # pipelined device stage and the fuse stage run each block of
+        # object slots on its device; None keeps every model here
+        self._model_mesh = mesh
+        self._model_axis = model_axis
+        # (Preprocessed, its copy) by device: a frame's inputs copied once
+        # to each device of the plan
+        self._frame_copies: Dict = {}
         self._tuning = get_tuning(self.device)
         self.DIAG_INTERVAL = self._tuning.diag_interval
         self.tick = 0
@@ -568,7 +617,7 @@ class MaskFusion:
             # confidence and radius depend on the distance from the
             # principal point: a window's shifted one
             conf_px = sm.pixel_confidence(H, W, intr, 1.0,
-                                          self.device) * weighting
+                                          vmap0.device) * weighting
             rad_px = sm.radius_from_depth(vmap0[..., 2], nmap0[..., 2], intr)
             im2 = splat_ops.patch_index_map(
                 im1, fres.map, fres.new_pixels, vmap_raw, nmap0, conf_px,
@@ -666,9 +715,10 @@ class MaskFusion:
             prep.filt_depth[win], rgb[win], seg_mask[win], time, mask_id,
             conf_threshold, max_depth, weight_multiplier, bucket, parity,
             True, self._intr_shift(oy, ox), gate)
-        pv = torch.full((H, W, 3), float("nan"), device=self.device)
-        pn = torch.full((H, W, 3), float("nan"), device=self.device)
-        pc = torch.zeros((H, W, 3), device=self.device)
+        dev = state.pose.device
+        pv = torch.full((H, W, 3), float("nan"), device=dev)
+        pn = torch.full((H, W, 3), float("nan"), device=dev)
+        pc = torch.zeros((H, W, 3), device=dev)
         pv[win] = pred.vmap
         pn[win] = pred.nmap
         pc[win] = pred.rgb
@@ -699,7 +749,11 @@ class MaskFusion:
         (semantic-ignore: no model fuses it, no clean penalty fires); where
         the projection shows nothing the segmentation's label stays, so
         disocclusions fuse into the global map and a newborn object can
-        bootstrap.  Returns (global state, object states)."""
+        bootstrap.  With a models mesh each block of the plan over the
+        slots fuses its live slots on its device, from one copy a frame of
+        the inputs there (engine.py:1010-1012 of the JAX package); the
+        global model stays on the engine's device.  Returns (global state,
+        object states)."""
         if ids_guard is not None:
             seg_mask = torch.where((seg_mask == ids_guard) | (ids_guard == 0),
                                    seg_mask, 255).to(torch.uint8)
@@ -707,22 +761,88 @@ class MaskFusion:
             glob_state, prep, rgb, seg_mask, prev_poses[0], time, 0,
             self.cfg.conf_threshold_global, self.cfg.depth_cutoff,
             self.cfg.weight_multiplier, True, glob_bucket, parity, True, gate)
-        new_objs = []
-        for k, (state, row) in enumerate(zip(obj_states, obj_params)):
-            mid, conf_t, max_d, wm, oy, ox = row.tolist()
-            if int(mid) == DEAD_SLOT_ID:
-                new_objs.append(state)
-            elif windowed:
-                new_objs.append(self.fuse_clean_predict_obj_win(
-                    state, prep, rgb, seg_mask, prev_poses[k + 1], time,
-                    int(mid), conf_t, max_d, wm, int(oy), int(ox),
-                    obj_bucket, parity, gate))
-            else:
-                new_objs.append(self.fuse_clean_predict(
-                    state, prep, rgb, seg_mask, prev_poses[k + 1], time,
-                    int(mid), conf_t, max_d, wm, False, obj_bucket, parity,
-                    True, gate)[0])
+        new_objs = list(obj_states)
+        for dev, a, b in self._slot_blocks(len(obj_states)):
+            live = [k for k in range(a, b)
+                    if int(obj_params[k][0]) != DEAD_SLOT_ID]
+            if not live:
+                continue
+            with _on_device(dev):
+                prep_d = self._frame_on(prep, dev)
+                rgb_d, seg_d, prev_d, gate_d = _moved(
+                    (rgb, seg_mask, prev_poses, gate), dev)
+                for k in live:
+                    new_objs[k] = self._fuse_slot(
+                        self._state_on(obj_states[k], dev), prep_d, rgb_d,
+                        seg_d, prev_d[k + 1], time, obj_params[k],
+                        obj_bucket, parity, windowed, gate_d)
         return new_glob, tuple(new_objs)
+
+    def _fuse_slot(self, state: MapState, prep: Preprocessed, rgb, seg_mask,
+                   prev_pose, time: float, row, obj_bucket: int,
+                   parity: Optional[int], windowed: bool,
+                   gate: Optional[torch.Tensor]) -> MapState:
+        """One live object slot's fuse + clean + predict: in its window
+        when `windowed`, else on the full frame without fill-in; `row` its
+        host [mask_id, conf_t, max_depth, weight_mult, oy, ox]."""
+        mid, conf_t, max_d, wm, oy, ox = row.tolist()
+        if windowed:
+            return self.fuse_clean_predict_obj_win(
+                state, prep, rgb, seg_mask, prev_pose, time, int(mid),
+                conf_t, max_d, wm, int(oy), int(ox), obj_bucket, parity,
+                gate)
+        return self.fuse_clean_predict(
+            state, prep, rgb, seg_mask, prev_pose, time, int(mid), conf_t,
+            max_d, wm, False, obj_bucket, parity, True, gate)[0]
+
+    # ------------------------------------------------- the models mesh
+    def _shard_model_axis(self, n: int):
+        """The block plan of n stacked object slots over the models mesh,
+        or None (engine.py:1049-1055 of the JAX package, which delegates
+        likewise to parallel.multimodel)."""
+        return multimodel.shard_model_axis(self._model_mesh,
+                                           self._model_axis, n)
+
+    def _slot_blocks(self, n: int):
+        """(device, start, stop) of each block of the plan of n slots; one
+        block on the engine's device without a plan."""
+        plan = self._shard_model_axis(n)
+        if plan is None:
+            return [(self.device, 0, n)]
+        return [(blk.device, blk.start, blk.stop) for blk in plan]
+
+    def _state_on(self, state: MapState, dev: torch.device) -> MapState:
+        """A slot's state on its block's device (itself without a mesh, or
+        where it already is)."""
+        if self._model_mesh is None:
+            return state
+        return _moved(state, dev)
+
+    def _frame_on(self, prep: Preprocessed, dev: torch.device
+                  ) -> Preprocessed:
+        """The frame's preprocessed images on `dev`, copied once a frame:
+        the device stage's copy serves the same frame's fuse."""
+        if self._model_mesh is None:
+            return prep
+        held = self._frame_copies.get(dev)
+        if held is None or held[0] is not prep:
+            held = (prep, _moved(prep, dev))
+            self._frame_copies[dev] = held
+        return held[1]
+
+    def _place_objects(self, objs: List[Model], n_slots: int = 0) -> None:
+        """Each object's state on its slot's device in the plan of
+        n_slots (none: the engine's device).  A state moves only where it
+        is elsewhere: between frames of one plan nothing moves, and a
+        spawn, a deactivation or a count that no longer tiles the mesh
+        moves the states once.  The synchronous frame and the lagfuse
+        fallback track every object on the engine's device."""
+        if self._model_mesh is None:
+            return
+        blocks = self._slot_blocks(n_slots)
+        for k, m in enumerate(objs):
+            dev = next((d for d, a, b in blocks if a <= k < b), self.device)
+            m.state = _moved(m.state, dev)
 
     def fused_static_step(self, state: MapState, rgb, depth, time: float,
                           bucket: int, parity: Optional[int],
@@ -800,7 +920,7 @@ class MaskFusion:
             time, self.cfg.effective_time_delta(), max_depth,
             conf_threshold=12.0)
         pred = splat_ops.combined_predict(im, intr, max_depth)
-        out = torch.full((H, W), float("inf"), device=self.device)
+        out = torch.full((H, W), float("inf"), device=pose.device)
         out[oy:oy + OW, ox:ox + OW] = torch.where(pred.depth > 0, pred.depth,
                                                   float("inf"))
         return out
@@ -836,7 +956,13 @@ class MaskFusion:
         padded slot axis, as the JAX package packs it, every model's surfel
         count, the global covariance maximum, each slot's jump, the
         pre-track poses and the world poses (object->world = global @
-        inverse(object)); `okf` is the device bool cov <= threshold."""
+        inverse(object)); `okf` is the device bool cov <= threshold.
+
+        With a models mesh (``mesh=``) each block of the plan over the
+        padded slots solves and projects its live slots on its device
+        (engine.py:899-907 of the JAX package); the object poses come back
+        on their blocks' devices, the depth images, hostvec and the rest on
+        the engine's."""
         cfg = self.cfg
         n_slots = len(obj_states)
         n_live = int((obj_aux[:, 0] < DEAD_SLOT_ID).sum())
@@ -851,46 +977,62 @@ class MaskFusion:
         warm = (se3.pose_inverse(glob_state.pose) @ tr.pose
                 if cfg.object_warm_start else None)
         cov = tr.cov_diag.max()
-        states = list(obj_states[:n_live])
         windows = [(int(oy), int(ox)) for _, oy, ox in live]
-        poses, norms = [], torch.zeros((0,), device=self.device)
-        if n_live and windowed:
-            poses, norms = self.track_objects_win(
-                states, rows[:, 0].to(torch.int32), windows, rows[:, 1:],
-                prep, warm)
-        elif n_live == 1:
-            # one object on the full frame takes the one-model solve, as in
-            # the synchronous schedule (the same numbers as a one-slot
-            # batch up to rounding, which the object's solve amplifies)
-            trm = self.track(states[0], prep, int(live[0, 0]),
-                             is_object=True, warm=warm)
-            poses = trm.pose[None]
-            norms = torch.linalg.vector_norm(trm.delta[:3, 3])[None]
-        elif n_live:
-            poses, norms = self.track_objects(
-                states, rows[:, 0].to(torch.int32), prep, warm)
-        new_poses = list(poses) + [st.pose for st in obj_states[n_live:]]
-        jumps = torch.cat([norms, torch.zeros((n_slots - n_live,),
-                                              device=self.device)])
         cutoff = cfg.depth_cutoff
         depths = [self.project_ids(glob_state.map, tr.pose, time, cutoff,
                                    glob_bucket)]
-        maps = [st.map for st in states]
-        if windowed:
-            depths += self.project_ids_obj_win_batched(
-                maps, new_poses[:n_live], time, cutoff, obj_bucket, windows)
-        else:
-            depths += self.project_ids_batched(maps, new_poses[:n_live],
-                                               time, cutoff, obj_bucket)
+        poses, norms = [], [torch.zeros((0,), device=self.device)]
+        # the live slots of each block of the models mesh (one block
+        # without one) solve and project on its device
+        for dev, a, b in self._slot_blocks(n_slots):
+            b = min(b, n_live)
+            if a >= b:
+                continue
+            with _on_device(dev):
+                states = [self._state_on(st, dev) for st in obj_states[a:b]]
+                prep_d = self._frame_on(prep, dev)
+                rows_d, warm_d = _moved((rows[a:b], warm), dev)
+                if windowed:
+                    p, nrm = self.track_objects_win(
+                        states, rows_d[:, 0].to(torch.int32), windows[a:b],
+                        rows_d[:, 1:], prep_d, warm_d)
+                elif n_live == 1:
+                    # one object on the full frame takes the one-model
+                    # solve, as in the synchronous schedule (the same
+                    # numbers as a one-slot batch up to rounding, which the
+                    # object's solve amplifies)
+                    trm = self.track(states[0], prep_d, int(live[0, 0]),
+                                     is_object=True, warm=warm_d)
+                    p = trm.pose[None]
+                    nrm = torch.linalg.vector_norm(trm.delta[:3, 3])[None]
+                else:
+                    p, nrm = self.track_objects(
+                        states, rows_d[:, 0].to(torch.int32), prep_d, warm_d)
+                maps = [st.map for st in states]
+                if windowed:
+                    d = self.project_ids_obj_win_batched(
+                        maps, p, time, cutoff, obj_bucket, windows[a:b])
+                else:
+                    d = self.project_ids_batched(maps, p, time, cutoff,
+                                                 obj_bucket)
+            poses += list(p)
+            norms.append(nrm)
+            depths += d
+        new_poses = poses + [st.pose for st in obj_states[n_live:]]
+        jumps = torch.cat([_moved(x, self.device) for x in norms]
+                          + [torch.zeros((n_slots - n_live,),
+                                         device=self.device)])
+        depths = [_moved(x, self.device) for x in depths]
         ids = self.combine_ids(depths, ids_vec)
         lv0 = prep.levels[0]
         _edge, nonedge = self.segmenter.edge_binary(lv0["vmap"], lv0["nmap"])
-        counts = torch.stack([glob_state.map.count]
-                             + [st.map.count for st in obj_states])
-        prev_poses = torch.stack([glob_state.pose]
-                                 + [st.pose for st in obj_states])
+        counts = torch.stack([glob_state.map.count] + [
+            _moved(st.map.count, self.device) for st in obj_states])
+        prev_poses = torch.stack([glob_state.pose] + [
+            _moved(st.pose, self.device) for st in obj_states])
         world_poses = torch.stack(
-            [tr.pose] + [tr.pose @ se3.pose_inverse(p) for p in new_poses])
+            [tr.pose] + [tr.pose @ se3.pose_inverse(_moved(p, self.device))
+                         for p in new_poses])
         hostvec = torch.cat([counts.to(torch.float32), cov[None], jumps,
                              prev_poses.reshape(-1), world_poses.reshape(-1)])
         okf = cov <= self._cov_thresh
@@ -1319,10 +1461,11 @@ class MaskFusion:
             * (n_slots - len(objs)), np.float32).reshape(n_slots, 6)
 
     def _dev(self, a) -> torch.Tensor:
-        """A pose on the device: a host array (unpacked from a hostvec) is
-        uploaded without waiting."""
+        """A pose on the engine's device: a host array (unpacked from a
+        hostvec) is uploaded, a tensor on another device of the models mesh
+        copied, without waiting."""
         if isinstance(a, torch.Tensor):
-            return a
+            return _moved(a, self.device)
         return self._upload(np.asarray(a, np.float32))
 
     def _stack_poses(self, poses) -> torch.Tensor:
@@ -1361,6 +1504,7 @@ class MaskFusion:
                         and bool(objs or cfg.min_object_slots)
                         and all(m.window is not None for m in objs))
             n_slots = _slot_class(len(objs), cfg.min_object_slots)
+            self._place_objects(objs, n_slots)
             eye = np.eye(4, dtype=np.float32)
             prev_poses = self._stack_poses(
                 [glob.prev_pose] + [m.prev_pose for m in objs]
@@ -1378,6 +1522,7 @@ class MaskFusion:
             self._seg_dev = (tick if seg_tick is None else seg_tick,
                              seg_mask)
             return
+        self._place_objects(objs)
         for model in list(self.models):
             is_glob = model.model_id == 0
             wm = (100.0 if not model.fused_once and not is_glob
@@ -1550,6 +1695,7 @@ class MaskFusion:
                 [[m.model_id, *(m.window or (0, 0))] for m in objs]
                 + [[DEAD_SLOT_ID, 0, 0]] * (n_slots - len(objs)),
                 np.float32).reshape(n_slots, 3)
+            self._place_objects(objs, n_slots)
             with self.stopwatch.scope("odom"):
                 (prep, gpose, oposes, hostvec, ids_dev, nonedge_dev,
                  prev_poses_dev, okf) = self.pipelined_device_stage(
@@ -1573,6 +1719,7 @@ class MaskFusion:
                         ids_dev, n_slots)
             self._pending.append(P)
         else:
+            self._place_objects(objs)
             for model in self.models:
                 model.prev_pose = model.state.pose.clone()
             with self.stopwatch.scope("Preprocess"):
@@ -1809,8 +1956,11 @@ class MaskFusion:
         """The synchronous multi-object frame, and any frame with a
         ground-truth pose (engine.py:1154-1165, 1236-1377 of the JAX
         package).  In static mode there are no object models and the
-        segmentation is skipped: the frame fuses with an all-zero mask."""
+        segmentation is skipped: the frame fuses with an all-zero mask.
+        Every object tracks on the engine's device (the fuse stage then
+        splits the objects over a models mesh, as the JAX engine's does)."""
         cfg = self.cfg
+        self._place_objects(self.models[1:])
         H, W = self.res.height, self.res.width
         self._mark("start")
         with self.stopwatch.scope("Preprocess"):
@@ -2039,11 +2189,13 @@ class MaskFusion:
     def _log_poses(self, frame: FrameData) -> None:
         """TUM-convention pose log entries (MaskFusion.cpp:578-602) hold
         device tensors; exporters convert lazily.  An object's logged pose
-        is object->world = global_pose @ inverse(object_pose)."""
+        is object->world = global_pose @ inverse(object_pose), on the
+        engine's device (an object's state may be on another device of
+        the models mesh)."""
         glob_pose = self.models[0].state.pose
         for i, model in enumerate(self.models):
-            pose = (glob_pose.clone() if i == 0
-                    else glob_pose @ se3.pose_inverse(model.state.pose))
+            pose = (glob_pose.clone() if i == 0 else glob_pose
+                    @ se3.pose_inverse(self._dev(model.state.pose)))
             model.pose_log.append({
                 "timestamp": frame.timestamp or float(self.tick),
                 "tick": self.tick, "pose": pose})

@@ -136,6 +136,21 @@ class ConvTranspose2x2(nn.Module):
                                   self.bias.to(dt), stride=2)
 
 
+def flax_axes(name: str, ndim: int) -> Tuple[int, ...]:
+    """The layout of the ``state_dict`` entry ``name`` against flax's: axis
+    i of the torch tensor is axis ``flax_axes(name, ndim)[i]`` of the flax
+    leaf.  Conv kernels (kh, kw, in, out) are held (out, in, kh, kw), the
+    transposed conv's (in, out, kh, kw) (and flipped in both spatial
+    axes), Dense kernels (in, out) as (out, in); every other leaf keeps
+    its axes.  ``convert.maskrcnn_state_dict`` and the FSDP placement rule
+    (``parallel.mesh``) read this one table."""
+    if name.endswith(".weight") and ndim >= 2:
+        if name.endswith("deconv.weight"):
+            return (2, 3, 0, 1)
+        return (3, 2, 0, 1) if ndim == 4 else (1, 0)
+    return tuple(range(ndim))
+
+
 def to_compute_dtype_(model: nn.Module) -> nn.Module:
     """Store every conv, dense and transposed-conv parameter in its compute
     dtype, in place: a serving copy whose calls cast nothing.  Its forward
@@ -615,6 +630,27 @@ class MaskRCNN(nn.Module):
         l_mask = mask_head_loss(mask_logits, tgt)
         return {"rpn": l_rpn, "class": l_cls, "box": l_box, "mask": l_mask,
                 "total": l_rpn + l_cls + l_box + l_mask}
+
+    def batch_loss(self, images, gt_boxes, gt_classes, gt_valid, gt_masks,
+                   draws, full_loss: bool = True) -> torch.Tensor:
+        """The mean over a batch of each image's loss (the JAX train step's
+        ``loss_fn``, parallel/train.py:46-61, which ``vmap``s where this
+        loops): ``train_losses``' total, or the RPN loss alone for the
+        warm-up.  Inputs as ``train_losses``' with a leading batch axis;
+        draws (B, 2, post_nms_proposals + G).  The sharded train step
+        registers this method as an FSDP forward."""
+        losses = []
+        for b in range(images.shape[0]):
+            img = images[b][None]
+            if full_loss:
+                losses.append(self.train_losses(
+                    img, gt_boxes[b], gt_classes[b], gt_valid[b],
+                    gt_masks[b], draws[b])["total"])
+            else:
+                logits, deltas = self.rpn(self.features(img))
+                losses.append(rpn_loss(logits[0], deltas[0], self.anchors,
+                                       gt_boxes[b], gt_valid[b], self.cfg))
+        return torch.stack(losses).mean()
 
 
 # --------------------------------------------------------------------------

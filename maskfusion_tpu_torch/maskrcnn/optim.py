@@ -18,6 +18,7 @@ import math
 from typing import Callable, Iterable, Optional, Sequence, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 
 Schedule = Callable[[int], float]
 
@@ -81,11 +82,20 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor],
     """optax.clip_by_global_norm in place: every gradient scaled by
     max_norm / norm when the global norm is not below max_norm (``(g /
     norm) * max_norm``, optax's order).  Returns the global norm, a device
-    scalar (no host synchronise)."""
-    norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+    scalar (no host synchronise).  The gradients of a sharded network
+    (DTensors, ``parallel.train``) count whole: their squares are summed
+    over the shards (one all-reduce), and each rank scales its shard."""
+    sharded = [g for g in grads if isinstance(g, DTensor)]
+    plain = [g for g in grads if not isinstance(g, DTensor)]
+    sq = sum(g.float().pow(2).sum() for g in plain)
+    if sharded:
+        sq = sq + sum(g.float().pow(2).sum()
+                      for g in sharded).full_tensor()
+    norm = torch.sqrt(sq)
     clip = norm >= max_norm
     for g in grads:
-        g.copy_(torch.where(clip, (g / norm) * max_norm, g))
+        local = g.to_local() if isinstance(g, DTensor) else g
+        local.copy_(torch.where(clip, (local / norm) * max_norm, local))
     return norm
 
 
@@ -100,8 +110,15 @@ class Optimizer:
         self.params = list(params)
         self.schedule = lr if callable(lr) else (lambda count: lr)
         self.clip_norm = clip_norm
+        self.grad_norm: Optional[torch.Tensor] = None   # the last clip's
         self.count = 0
-        self.adam = torch.optim.Adam(self.params, lr=self.schedule(0),
+        # a sharded network's DTensors and the full tensors FSDP holds out
+        # (parallel.mesh) update in groups of their own: a group's foreach
+        # kernels take one kind
+        groups = [[p for p in self.params if isinstance(p, DTensor) == d]
+                  for d in (False, True)]
+        self.adam = torch.optim.Adam([{"params": g} for g in groups if g],
+                                     lr=self.schedule(0),
                                      betas=(0.9, 0.999), eps=1e-8)
 
     def zero_grad(self) -> None:
@@ -112,8 +129,9 @@ class Optimizer:
         one is left as it is, as optax leaves a parameter whose gradients
         have all been zero (the RPN-only step's heads)."""
         if self.clip_norm is not None:
-            clip_by_global_norm_([p.grad for p in self.params
-                                  if p.grad is not None], self.clip_norm)
+            self.grad_norm = clip_by_global_norm_(
+                [p.grad for p in self.params if p.grad is not None],
+                self.clip_norm)
         for group in self.adam.param_groups:
             group["lr"] = self.schedule(self.count)
         self.adam.step()

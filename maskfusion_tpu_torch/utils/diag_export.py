@@ -76,9 +76,11 @@ class DiagnosticExporter:
         if tick % self.interval:
             return
         for model in engine.models:
+            # on the model's device (a device of the models mesh)
+            pv = model.state.pred_vmap
             err = _alignment_error_image(
-                model.state.pred_vmap, model.state.pred_nmap,
-                frame_vmap).cpu().numpy()
+                pv, model.state.pred_nmap,
+                frame_vmap.to(pv.device)).cpu().numpy()
             self._save_error_png(err, tick, model.model_id)
 
     def _save_error_png(self, err: np.ndarray, tick: int, model_id: int):

@@ -57,6 +57,10 @@ import maskfusion_tpu_torch.maskrcnn.convert
 import maskfusion_tpu_torch.maskrcnn.train_checkpoint
 import maskfusion_tpu_torch.parallel
 import maskfusion_tpu_torch.parallel.train
+import maskfusion_tpu_torch.parallel.mesh
+import maskfusion_tpu_torch.parallel.multimodel
+import maskfusion_tpu_torch.parallel.launch
+import maskfusion_tpu_torch.parallel.dryrun
 import maskfusion_tpu_torch.ops.slic
 import maskfusion_tpu_torch.segmentation.cf_segmentation
 import maskfusion_tpu_torch.reloc.ferns

@@ -897,3 +897,118 @@ def test_live_viewer_frame_on_the_card(cuda_device):
     assert got.shape == ref.shape == (2 * h + 24, 2 * w, 3)
     diff = np.abs(got[24:].astype(int) - ref[24:].astype(int)).max(-1)
     assert (diff > 1).mean() <= chip_smoke.VIEWER_TIE_SHARE
+
+
+@pytest.mark.cuda
+def test_models_mesh_on_one_card(cuda_device):
+    """The prefused schedule of test_prefused_frames_never_wait_on_the_card
+    with its two object slots split over ModelMesh(["cuda:0", "cuda:0"]):
+    each block solves, projects and fuses on its own; the frames after
+    both spawns issue no synchronising call; against the engine without a
+    mesh, the same model ids on every frame, the logged poses within
+    chip_smoke.MESH_HOLD_M up to frame 4 (phase 16a's bound: the split
+    moves no arithmetic), then the global pose within 1 mm and the
+    objects' within 8 mm (phase 7's: an object's solve amplifies the
+    rounding of the kernels' atomics over frames)."""
+    from maskfusion_tpu_torch.camera import CameraIntrinsics, Resolution
+    from maskfusion_tpu_torch.config import Config
+    from maskfusion_tpu_torch.engine import MaskFusion
+    from maskfusion_tpu_torch.frame import FrameData
+    from maskfusion_tpu_torch.parallel.multimodel import ModelMesh
+
+    fx, fy, cx, cy, w, h = chip_smoke.SMALL
+    frames = chip_smoke.synthetic_two_objects(8)
+
+    def run(mesh):
+        eng = MaskFusion(Resolution(w, h), CameraIntrinsics(fx, fy, cx, cy),
+                         Config(global_surfel_capacity=1 << 16,
+                                object_surfel_capacity=1 << 13,
+                                seg_method="maskfusion", model_spawn_offset=0,
+                                object_window=104, object_window_margin=24,
+                                min_object_slots=2),
+                         device=cuda_device, mesh=mesh)
+        records = []
+        for i, (rgb, depth, lab) in enumerate(frames):
+            frame = eng.upload_frame(FrameData(
+                rgb=rgb, depth=depth, mask=lab, class_ids=[0, 7, 8],
+                timestamp=float(i)))
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error" if i >= 5 else 0)
+            try:
+                eng.process_frame(frame)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            records.append(([m.model_id for m in eng.models],
+                            [n(m.pose_log[-1]["pose"]) if m.pose_log
+                             else None for m in eng.models]))
+        eng.drain_pipeline()
+        return eng, records
+
+    _, ref = run(None)
+    eng, split = run(ModelMesh(["cuda:0", "cuda:0"]))
+    assert eng._shard_model_axis(2) is not None
+    assert ref[-1][0] == [0, 1, 2]
+    for i, ((ids, poses), (ref_ids, ref_poses)) in enumerate(zip(split,
+                                                                 ref)):
+        assert ids == ref_ids, i
+        for k, (p, q) in enumerate(zip(poses, ref_poses)):
+            assert (p is None) == (q is None), (i, k)
+            if p is not None:
+                gap = np.linalg.norm(p[:3, 3] - q[:3, 3])
+                bound = (chip_smoke.MESH_HOLD_M if i <= 4
+                         else 1e-3 if k == 0 else 8e-3)
+                assert gap <= bound, (i, k, gap)
+
+
+@pytest.mark.cuda
+def test_models_mesh_across_card_and_cpu(cuda_device):
+    """The two object slots split over ModelMesh(["cuda:0", "cpu"]): real
+    copies between the devices, the CPU block on the kernels' plain
+    versions.  chip_smoke's phase 16a across devices: phase 7's scene in
+    the synchronous and the prefused schedule against the unsplit engine on
+    the card (the same ids, the global pose at phase 7's bounds, the
+    objects and counts up to chip_smoke.ACROSS_HOLD_LAST_FRAME; the second
+    slot's state left on the CPU)."""
+    from maskfusion_tpu_torch.camera import CameraIntrinsics, Resolution
+    from maskfusion_tpu_torch.config import Config
+    from maskfusion_tpu_torch.engine import MaskFusion
+    from maskfusion_tpu_torch.frame import FrameData
+
+    out = chip_smoke.phase_models_mesh_across(
+        cuda_device, MaskFusion, Config, Resolution, CameraIntrinsics,
+        FrameData)
+    assert set(out) == set(chip_smoke.ACROSS_FORMS)
+
+
+@pytest.mark.cuda
+def test_sharded_step_on_one_card_over_nccl(cuda_device):
+    """create_train_step(..., mesh=make_mesh(1)) on one NCCL rank (a (1, 1)
+    mesh) against the one-card step on the card, micro_config(64), the
+    same batch, seed and draws, two steps: after each, the loss within 1e-5
+    relative, every parameter within 2 lr a step taken and all but 1e-4 of
+    them within 1e-6 (tests/test_torch_parallel.py's bounds)."""
+    from maskfusion_tpu_torch.maskrcnn import synthetic_shapes as ss
+    from maskfusion_tpu_torch.parallel.launch import run_ranks
+    from maskfusion_tpu_torch.parallel.train import (create_train_step,
+                                                     sharded_runs)
+
+    cfg, lr = ss.micro_config(64), 1e-4
+    batch = ss.make_batch(np.random.default_rng(0), 2, 64)
+    n_draw = cfg.post_nms_proposals + batch[1].shape[1]
+    draws = [torch.rand((2, 2, n_draw), generator=torch.Generator()
+                        .manual_seed(s)).numpy() for s in range(2)]
+    (_, steps), = run_ranks(sharded_runs, 1, "nccl", ([dict(
+        cfg=cfg, batch=batch, draws=draws, learning_rate=lr,
+        device_type="cuda")],), 300.0)[0]
+    init_fn, step_fn = create_train_step(cfg, lr, device=cuda_device)
+    state = init_fn(0, 2)
+    tensors = [torch.from_numpy(a).to(cuda_device) for a in batch]
+    for i, d in enumerate(draws):
+        state, loss = step_fn(state, torch.from_numpy(d).to(cuda_device),
+                              *tensors)
+        assert abs(steps[i][0] - float(loss)) <= 1e-5 * abs(float(loss))
+        ref = {k: n(v) for k, v in state.params.state_dict().items()}
+        diff = np.concatenate([np.abs(steps[i][2][k] - ref[k]).ravel()
+                               for k in ref])
+        assert diff.max() <= 2 * lr * (i + 1), (i, diff.max())
+        assert (diff > 1e-6).mean() <= 1e-4, (i, (diff > 1e-6).mean())

@@ -15,7 +15,13 @@ inputs:
 - the fuse stage with the tracking gate and the ids-guard against the JAX
   engine's `_pipelined_fuse_stage` (the bounds of
   tests/test_torch_object_passes.py);
-- a lockstep run of both engines over the remaining frames of the eight.
+- a lockstep run of both engines over the remaining frames of the eight;
+- the device stage and the fuse stage of a port engine whose object slots
+  are split over a two-entry models mesh (``ModelMesh(["cpu", "cpu"])``:
+  one slot a block, each solved, projected and fused on its own) against
+  the same JAX stages, at the same bounds.  The JAX package holds its own
+  split stages equal to its unsplit ones
+  (tests/test_parallel.py::test_engine_model_axis_sharded_matches_unsharded).
 
 The JAX engine runs with its native library off, as the port's other
 lockstep tests run it, and the test waits for its pending device results
@@ -38,6 +44,7 @@ from maskfusion_tpu_torch.config import Config
 from maskfusion_tpu_torch.convert import engine_snapshot, restore_engine
 from maskfusion_tpu_torch.engine import DEAD_SLOT_ID, MaskFusion, Preprocessed
 from maskfusion_tpu_torch.frame import FrameData
+from maskfusion_tpu_torch.parallel.multimodel import ModelMesh
 from maskfusion_tpu_torch.tracking import odometry as todo
 from tests import synthetic as syn
 from tests.test_torch_object_passes import (_assert_global_map_close,
@@ -58,6 +65,8 @@ N_FRAMES = 8
 # the bounds of the lockstep tests (tests/test_torch_object_passes.py) hold
 # up to this frame; the later ones are reported
 HOLD_LAST_FRAME = 4
+# a two-entry models mesh on the CPU: one object slot a block
+MESH = ModelMesh(["cpu", "cpu"])
 
 
 def moving_object_frames(count):
@@ -72,9 +81,10 @@ def moving_object_frames(count):
     return frames
 
 
-def port_engine(**overrides) -> MaskFusion:
+def port_engine(mesh=None, **overrides) -> MaskFusion:
     return MaskFusion(Resolution(syn.W, syn.H), tintr(syn.DEFAULT_INTR),
-                      Config(**{**SLICE, **overrides}), device=CPU)
+                      Config(**{**SLICE, **overrides}), device=CPU,
+                      mesh=mesh)
 
 
 def _frame_data(cls, frames, i):
@@ -115,8 +125,8 @@ def carried():
     jnative._lib, jnative._tried = state["native"]
 
 
-def _restored(snap, **overrides) -> MaskFusion:
-    eng = port_engine(**overrides)
+def _restored(snap, mesh=None, **overrides) -> MaskFusion:
+    eng = port_engine(mesh, **overrides)
     restore_engine(eng, snap)
     return eng
 
@@ -148,11 +158,19 @@ def device_stages(state) -> dict:
         jnp.asarray(rgb), jnp.asarray(depth), jnp.asarray(seg), float(tick),
         windowed=True, **buckets)
     teng = _restored(snap)
+    return {"stage_j": out_j, "stage_t": port_device_stage(state, teng),
+            "stage_engine": teng}
+
+
+def port_device_stage(state, teng):
+    """The port engine's device stage on the carried state and frame 3."""
+    rgb, depth, _ = state["frames"][CARRY_AT]
+    aux, buckets, tick = _stage_inputs(state["snap"])
     objs = teng.models[1:]
-    out_t = teng.pipelined_device_stage(
+    return teng.pipelined_device_stage(
         teng.models[0].state, teng._padded_obj_states(objs, 2), aux, t(rgb),
-        t(depth), t(seg), float(tick), windowed=True, **buckets)
-    return {"stage_j": out_j, "stage_t": out_t, "stage_engine": teng}
+        t(depth), t(state["snap"]["last_segmentation"]), float(tick),
+        windowed=True, **buckets)
 
 
 # ------------------------------------------------------------ device stage
@@ -179,10 +197,24 @@ def test_device_stage_matches_jax(carried):
     equal but for fewer than 3e-3 of the pixels (scan ties and
     knife-edge concavity gates, tests/test_pallas.py's bound).  The dead
     slot keeps its identity pose and a zero jump."""
+    _assert_device_stage_matches(carried["stage_t"], carried)
+
+
+def test_device_stage_on_a_models_mesh_matches_jax(carried):
+    """test_device_stage_matches_jax's bounds for a port engine whose two
+    object slots are split over ModelMesh(["cpu", "cpu"]): the live slot
+    solves and projects in its own block (the dead one's block has
+    nothing to solve)."""
+    teng = _restored(carried["snap"], MESH)
+    assert teng._shard_model_axis(2) is not None
+    _assert_device_stage_matches(port_device_stage(carried, teng), carried)
+
+
+def _assert_device_stage_matches(stage_t, carried):
     (prep_j, gpose_j, oposes_j, hv_j, ids_j, nonedge_j, prev_j,
      okf_j) = carried["stage_j"]
     (prep_t, gpose_t, oposes_t, hv_t, ids_t, nonedge_t, prev_t,
-     okf_t) = carried["stage_t"]
+     okf_t) = stage_t
     np.testing.assert_allclose(n(gpose_t), n(gpose_j), atol=2e-5)
     assert len(oposes_t) == len(oposes_j) == 2
     np.testing.assert_allclose(n(oposes_t[0]), n(oposes_j[0]), atol=2e-5)
@@ -241,6 +273,18 @@ def test_gated_guarded_fuse_stage_matches_jax(carried, gate):
     JAX engine's preprocessed frame and id image): with the gate open, the
     maps and predictions at the bounds of tests/test_torch_object_passes.py;
     closed, every map, count and prediction as it went in, on both."""
+    _assert_fuse_stage_matches(carried, gate, None)
+
+
+@pytest.mark.parametrize("gate", [True, False], ids=["open", "closed"])
+def test_fuse_stage_on_a_models_mesh_matches_jax(carried, gate):
+    """test_gated_guarded_fuse_stage_matches_jax for a port engine whose
+    two object slots are split over ModelMesh(["cpu", "cpu"]): the live
+    slot fuses in its own block, from the block's copy of the inputs."""
+    _assert_fuse_stage_matches(carried, gate, MESH)
+
+
+def _assert_fuse_stage_matches(carried, gate, mesh):
     snap, jeng = carried["snap"], carried["jeng"]
     prep_j, _, oposes_j, _, ids_j, _, prev_j, _ = carried["stage_j"]
     prep_t = Preprocessed(
@@ -272,7 +316,7 @@ def test_gated_guarded_fuse_stage_matches_jax(carried, gate):
         glob_in, (obj_in, _jdead(recs[0], cap)), prep_j, jnp.asarray(rgb),
         jnp.asarray(seg), prev_j, float(tick), jnp.asarray(params),
         gate=jnp.asarray(gate), ids_guard=ids_j, **statics)
-    teng = _restored(snap)
+    teng = _restored(snap, mesh)
     g, o = teng.models[0], teng.models[1]
     g.state = g.state._replace(pose=t(carried["stage_j"][1]))
     o.state = o.state._replace(pose=t(oposes_j[0]))
