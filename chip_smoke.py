@@ -810,49 +810,42 @@ def phase_engine(dev, kernels, MaskFusion, Config, Resolution,
     if not surfels > 0:
         raise AssertionError("empty map after the run")
 
-    stage_ms, _ = stage_times(engine, frames[n_main:n_main + n_stage])
+    stage_ms = span_self_ms(engine, frames[n_main:n_main + n_stage])
     prof = profile_frames(engine, frames[n_main + n_stage:], 1000.0 / fps)
     m = engine.download_map()
     direct = {"poses": engine.pose_log_numpy(),
               "confident_surfels": int(
                   (m["conf"] > cfg.conf_threshold_global).sum())}
-    return {"fps": fps, "frames_timed": n_timed, "stage_ms": stage_ms,
+    return {"fps": fps, "frames_timed": n_timed, "span_self_ms": stage_ms,
             "launches": launches, "surfels": surfels, "profile": prof}, direct
 
 
-def stage_times(engine, frames):
-    """Per-stage times over `frames` from the engine's stage marks (a mark
-    ends the stage it names; "start" opens a frame): the device timeline
-    between CUDA events recorded at the marks (idle gaps included), and the
-    host's clock between them.  Returns (device ms, host ms), each the mean
-    per frame by stage."""
+def span_self_ms(engine, frames):
+    """Runs `frames` under the profiler (CUDA activity, as the benchmark
+    traces) and prints the host self time of each span of the program's
+    span log (utils/stopwatch; `mfbench.spans.self_ns`), the mean per frame
+    by span name.  Returns it."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    marks = []
+    from maskfusion_tpu_torch.utils import stopwatch
+    from mfbench import spans
 
-    def hook(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev, time.perf_counter()))
-
-    engine.stage_hook = hook
-    for f in frames:
-        engine.process_frame(f)
-    engine.stage_hook = None
-    torch.cuda.synchronize()
-    dev: dict = {}
-    host: dict = {}
-    for (_, a, ta), (name, b, tb) in zip(marks, marks[1:]):
-        if name == "start":
-            continue
-        dev.setdefault(name, []).append(a.elapsed_time(b))
-        host.setdefault(name, []).append((tb - ta) * 1e3)
-    dev_ms = {k: float(np.mean(v)) for k, v in dev.items()}
-    host_ms = {k: float(np.mean(v)) for k, v in host.items()}
-    log(f"  stage ms, device timeline / host clock (mean of {len(frames)} "
-        "frames): " + ", ".join(f"{k} {dev_ms[k]:.2f} / {host_ms[k]:.2f}"
-                                for k in dev_ms))
-    return dev_ms, host_ms
+    stopwatch.clear_log()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        for f in frames:
+            engine.process_frame(f)
+        torch.cuda.synchronize()
+    recs = stopwatch.read_log()
+    kids = spans.children(recs)
+    ms: dict = {}
+    for i in spans.named(recs, {r["name"] for r in recs} - {"frame_to_pose"}):
+        name = recs[i]["name"]
+        ms[name] = ms.get(name, 0.0) + spans.self_ns(recs, i, kids) * 1e-6
+    ms = {k: v / len(frames) for k, v in ms.items()}
+    log(f"  span self ms, host (mean of {len(frames)} frames): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+    return ms
 
 
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -1193,8 +1186,8 @@ def phase_multiobject(dev, kernels, MaskFusion, Config, Resolution,
                       k.cx, k.cy, cfg.depth_cutoff), which))
     del st, im
     # the two profiler views first, while the main path's models are live
-    # (bench.py's scene spawns a fourth model near frame 31), then the stage
-    # times
+    # (bench.py's scene spawns a fourth model near frame 31), then the
+    # spans' self times
     rest = frames[n_main:]
     models_in = [len(engine.models)]
     prof = profile_frames(engine, rest[:n_prof], 1000.0 / fps)
@@ -1205,8 +1198,7 @@ def phase_multiobject(dev, kernels, MaskFusion, Config, Resolution,
                                1000.0 / fps)
     engine.cfg = cfg
     models_in.append(len(engine.models))
-    dev_ms, host_ms = stage_times(engine,
-                                  rest[2 * n_prof:2 * n_prof + n_stage])
+    stage_ms = span_self_ms(engine, rest[2 * n_prof:2 * n_prof + n_stage])
     key = "cudaLaunchKernel"
     per_frame = {
         "batched_windowed": prof["runtime_calls_per_frame"].get(key, 0.0),
@@ -1218,7 +1210,7 @@ def phase_multiobject(dev, kernels, MaskFusion, Config, Resolution,
         f"and after the two views {models_in}")
     return {"fps": fps, "timed_s": total, "frames_timed": n_timed,
             "windowed_frames": windowed,
-            "stage_device_ms": dev_ms, "stage_host_ms": host_ms,
+            "span_self_ms": stage_ms,
             "launches": launches, "launches_per_frame": {
                 k: v / n_main for k, v in launches.items()},
             "n_models": n_models, "surfels": counts, "profile": prof,

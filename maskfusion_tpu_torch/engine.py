@@ -47,7 +47,15 @@ Port of ``maskfusion_tpu/engine.py`` (ref Core/MaskFusion.{h,cpp}):
 The stopwatch times the host's dispatch of each stage (``Preprocess``,
 ``odom``, ``segmentation``, ``fuse``, ``Run``; the -static fast path records
 only ``Run``), and ``Config.diag_export_dir`` writes the per-frame metrics
-CSV and alignment-error images (utils/diag_export).
+CSV and alignment-error images (utils/diag_export).  While a torch profiler
+runs, the stopwatch's scopes and these spans enter the span log
+(utils/stopwatch), each with the tick of the frame it works for:
+``process_frame`` (the root); inside ``odom``, ``track_global`` (the global
+track) and ``track_objects`` (the objects' warm start and solve); inside
+``fuse``, ``fuse_global`` and ``fuse_objects`` (the live slots' loop);
+``host_stage`` (a pending frame's host stage, around ``fetch``,
+``fetch_ids`` and ``segmentation``); ``frame_to_pose``, from a frame's
+``process_frame`` call to its world pose read on the host.
 
 With the Co-Fusion segmenter (``seg_method="cofusion"``) every frame runs
 the synchronous step, whatever ``pipelined_multiobject`` says: the
@@ -124,7 +132,7 @@ from maskfusion_tpu_torch.parallel import multimodel
 from maskfusion_tpu_torch.segmentation import create_segmenter
 from maskfusion_tpu_torch.segmentation.mf_segmentation import ModelInfo
 from maskfusion_tpu_torch.tracking import odometry as odo
-from maskfusion_tpu_torch.utils.stopwatch import Stopwatch
+from maskfusion_tpu_torch.utils.stopwatch import Stopwatch, span, span_since
 from maskfusion_tpu_torch.utils.tuning import get_tuning
 
 # Model ids are uint8 mask labels.  255 is the semantic-ignore label and 254
@@ -371,14 +379,6 @@ class MaskFusion:
         self._bl_radius = max(1, int(round(self.cfg.bilateral_radius
                                            * bl_scale)))
         self._bl_sigma_space = 0.024691358 / (bl_scale * bl_scale)
-        # optional stage instrumentation: called with a stage name at each
-        # stage boundary of a frame (chip_smoke.py records CUDA events
-        # there); None costs nothing
-        self.stage_hook: Optional[Callable[[str], None]] = None
-
-    def _mark(self, name: str) -> None:
-        if self.stage_hook is not None:
-            self.stage_hook(name)
 
     # ------------------------------------------------------------ stages
     def preprocess(self, rgb: torch.Tensor, depth: torch.Tensor,
@@ -757,17 +757,19 @@ class MaskFusion:
         if ids_guard is not None:
             seg_mask = torch.where((seg_mask == ids_guard) | (ids_guard == 0),
                                    seg_mask, 255).to(torch.uint8)
-        new_glob, _removed, _app = self.fuse_clean_predict(
-            glob_state, prep, rgb, seg_mask, prev_poses[0], time, 0,
-            self.cfg.conf_threshold_global, self.cfg.depth_cutoff,
-            self.cfg.weight_multiplier, True, glob_bucket, parity, True, gate)
+        with span("fuse_global"):
+            new_glob, _removed, _app = self.fuse_clean_predict(
+                glob_state, prep, rgb, seg_mask, prev_poses[0], time, 0,
+                self.cfg.conf_threshold_global, self.cfg.depth_cutoff,
+                self.cfg.weight_multiplier, True, glob_bucket, parity, True,
+                gate)
         new_objs = list(obj_states)
         for dev, a, b in self._slot_blocks(len(obj_states)):
             live = [k for k in range(a, b)
                     if int(obj_params[k][0]) != DEAD_SLOT_ID]
             if not live:
                 continue
-            with _on_device(dev):
+            with _on_device(dev), span("fuse_objects"):
                 prep_d = self._frame_on(prep, dev)
                 rgb_d, seg_d, prev_d, gate_d = _moved(
                     (rgb, seg_mask, prev_poses, gate), dev)
@@ -854,18 +856,14 @@ class MaskFusion:
         # the JAX package jits this step and donates `state`; eager
         # PyTorch needs neither (the map is updated in place)
         cfg = self.cfg
-        self._mark("start")
         prep = self.preprocess(rgb, depth, self._zero_mask)
-        self._mark("preprocess")
         tr = self.track(state, prep, 0)
-        self._mark("track")
         prev_pose = state.pose
         state = state._replace(pose=tr.pose)
         new_state, removed, appended = self.fuse_clean_predict(
             state, prep, rgb, self._zero_mask, prev_pose, time, 0,
             cfg.conf_threshold_global, cfg.depth_cutoff,
             cfg.weight_multiplier, True, bucket, parity, compact)
-        self._mark("fuse_clean_predict")
         diag = torch.stack([
             tr.icp_error, tr.icp_count, tr.rgb_count, tr.cov_diag.max(),
             new_state.map.count.to(torch.float32),
@@ -973,9 +971,11 @@ class MaskFusion:
         rows = aux[:3 * n_slots].reshape(n_slots, 3)[:n_live]
         ids_vec = aux[3 * n_slots:].to(torch.int32)
         prep = self.preprocess(rgb, depth, prev_seg)
-        tr = self.track(glob_state, prep, 0)
-        warm = (se3.pose_inverse(glob_state.pose) @ tr.pose
-                if cfg.object_warm_start else None)
+        with span("track_global"):
+            tr = self.track(glob_state, prep, 0)
+        with span("track_objects"):
+            warm = (se3.pose_inverse(glob_state.pose) @ tr.pose
+                    if cfg.object_warm_start else None)
         cov = tr.cov_diag.max()
         windows = [(int(oy), int(ox)) for _, oy, ox in live]
         cutoff = cfg.depth_cutoff
@@ -988,7 +988,7 @@ class MaskFusion:
             b = min(b, n_live)
             if a >= b:
                 continue
-            with _on_device(dev):
+            with _on_device(dev), span("track_objects"):
                 states = [self._state_on(st, dev) for st in obj_states[a:b]]
                 prep_d = self._frame_on(prep, dev)
                 rows_d, warm_d = _moved((rows[a:b], warm), dev)
@@ -1008,6 +1008,7 @@ class MaskFusion:
                 else:
                     p, nrm = self.track_objects(
                         states, rows_d[:, 0].to(torch.int32), prep_d, warm_d)
+            with _on_device(dev):
                 maps = [st.map for st in states]
                 if windowed:
                     d = self.project_ids_obj_win_batched(
@@ -1321,13 +1322,11 @@ class MaskFusion:
         elif hasattr(self.segmenter, "edge_binary"):
             # the device part: edge map (kernel 3) -> non-edge binary
             kw["nonedge"] = self.segmenter.edge_binary(vmap, nmap)[1].cpu()
-            self._mark("segment_device")
         if getattr(self.segmenter, "wants_model_views", False):
             kw["model_views"] = self._cf_model_views(frame)
         seg_result = self.segmenter.perform(
             frame, vmap, nmap, ids, infos, self._get_next_model_id(False),
             allow_new, **kw)
-        self._mark("segment_host")
         seg_mask_np = seg_result.full_segmentation
         self.last_segmentation = seg_mask_np
 
@@ -1644,15 +1643,17 @@ class MaskFusion:
                 break
             self._finish_one(self._pending.popleft())
 
-    def _pipelined_step(self, frame: FrameData, rgb, depth,
-                        t0: float) -> Dict:
+    def _pipelined_step(self, frame: FrameData, rgb, depth, t0: float,
+                        t0_ns: int) -> Dict:
         """The pipelined multi-object frame (engine.py:2048-2206 of the JAX
         package), in either schedule (see the module docstring): first the
         host stages of finished frames (prefused: every one whose results
         have landed; exact: the previous frame's), then this frame's device
         stage, and in the prefused schedule its fuse right behind it.
         rgb_only forces the lagfuse schedule, whose host-side do_fuse
-        honours it (the prefused fuse is gated by the covariance only)."""
+        honours it (the prefused fuse is gated by the covariance only).
+        `t0_ns` (time.time_ns()) is the frame's process_frame call, where
+        its span frame_to_pose starts."""
         cfg = self.cfg
         self._pipelined_active = True
         prefused = bool(cfg.fuse_mask_lag) and not cfg.rgb_only
@@ -1708,7 +1709,7 @@ class MaskFusion:
             P = dict(kind="prefused" if prefused else "lagfuse",
                      frame=frame, prep=prep, rgb=rgb, tracked=list(objs),
                      tick=self.tick, first_fused=[], n_slots=n_slots,
-                     count_models=list(self.models))
+                     count_models=list(self.models), t0_ns=t0_ns)
             self._start_async_copy(P, ids=ids_dev, nonedge=nonedge_dev,
                                    hostvec=hostvec)
             if prefused:
@@ -1747,13 +1748,20 @@ class MaskFusion:
         return out
 
     def _finish_one(self, P: dict) -> None:
+        """A pending frame's host stage (`_host_stage`); while a profiler
+        runs, the span `host_stage` with the frame's tick."""
+        with span("host_stage", P["tick"]):
+            self._host_stage(P)
+
+    def _host_stage(self, P: dict) -> None:
         """The host stage of one pending frame (engine.py:2208-2305 of the
         JAX package): read its fetched results (waiting only if they have
         not landed), segment, update the lifecycle, and for a lagfuse
         record queue the fuse (a prefused record queued its own).  The
         hostvec unpacks into the models' counts, pre-track poses and logged
         world poses; a frame whose gate was closed gives its newborns back
-        their first-fuse weight."""
+        their first-fuse weight.  The frame's span frame_to_pose ends once
+        its world pose is on the host."""
         cfg = self.cfg
         tick = P["tick"]
         models = P["count_models"]
@@ -1767,6 +1775,7 @@ class MaskFusion:
         if P.get("hostvec") is not None:
             with self.stopwatch.scope("fetch"):
                 hv = P["hostvec"].numpy()
+            span_since("frame_to_pose", tick, P["t0_ns"])
             # the layout follows the PADDED slot axis; only the live
             # prefix of each section is read
             N = 1 + P["n_slots"]
@@ -1886,9 +1895,16 @@ class MaskFusion:
                       gt_pose: Optional[np.ndarray] = None) -> Dict:
         """One frame.  `gt_pose` (camera->world, e.g. from
         io.ground_truth) replaces the global track (the -p flag,
-        MainController.cpp:458-462)."""
+        MainController.cpp:458-462).  While a profiler runs, the call is
+        the span `process_frame`, the root of the frame's spans."""
         self.tick += 1
+        with span("process_frame", self.tick):
+            return self._process_frame(frame, gt_pose)
+
+    def _process_frame(self, frame: FrameData,
+                       gt_pose: Optional[np.ndarray]) -> Dict:
         t0 = _time.perf_counter()
+        t0_ns = _time.time_ns()     # frame_to_pose's start
         cfg = self.cfg
         rgb, depth = self._device_frame(frame)
         if not self.models:
@@ -1915,7 +1931,7 @@ class MaskFusion:
         if (not cfg.static_mode and gt_pose is None and self.ferns is None
                 and cfg.pipelined_multiobject
                 and hasattr(self.segmenter, "edge_binary")):
-            return self._pipelined_step(frame, rgb, depth, t0)
+            return self._pipelined_step(frame, rgb, depth, t0, t0_ns)
         # the -static fast path too runs without ferns only
         # (engine.py:1188 of the JAX package)
         if (gt_pose is not None or not cfg.static_mode
@@ -1962,10 +1978,8 @@ class MaskFusion:
         cfg = self.cfg
         self._place_objects(self.models[1:])
         H, W = self.res.height, self.res.width
-        self._mark("start")
         with self.stopwatch.scope("Preprocess"):
             prep = self.preprocess(rgb, depth, self._prev_seg())
-        self._mark("preprocess")
 
         # ---------------- tracking (MaskFusion.cpp:240-278) ----------------
         diag: Dict = {"tick": self.tick}
@@ -2023,7 +2037,6 @@ class MaskFusion:
                 for (model, _), jump in zip(jumps, norms):
                     if jump > cfg.model_deactivate_jump:
                         self._inactivate_model(model, "movement")
-        self._mark("track")
         self._relocalise(glob, tracking_ok)
 
         if cfg.static_mode:
@@ -2033,16 +2046,13 @@ class MaskFusion:
             # -------- global projection + segmentation (:289-296) --------
             with self.stopwatch.scope("segmentation"):
                 ids = self._project_ids_all(float(self.tick)).cpu().numpy()
-                self._mark("project")
                 seg_mask_np = self._segment_and_update_models(frame, prep,
                                                               rgb, ids)
-            self._mark("lifecycle")
 
         # ---------------- fuse / clean / predict (:539-569) ----------------
         do_fuse = tracking_ok and not self.lost and not cfg.rgb_only
         with self.stopwatch.scope("fuse"):
             self._dispatch_fuse(prep, rgb, seg_mask_np, self.tick, do_fuse)
-        self._mark("fuse")
 
         if self.ferns is not None and not self.lost:
             # the fern keyframe add (engine.py:1358-1361 of the JAX package)

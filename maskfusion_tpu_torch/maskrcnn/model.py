@@ -42,6 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from maskfusion_tpu_torch.utils.stopwatch import span
+
 
 @dataclasses.dataclass(frozen=True)
 class MaskRCNNConfig:
@@ -533,7 +535,8 @@ class MaskRCNN(nn.Module):
         return (image - 127.5) / 127.5
 
     def _proposals(self, rpn_logits, rpn_deltas):
-        """RPN scores + deltas -> post_nms_proposals boxes (one image)."""
+        """RPN scores + deltas -> post_nms_proposals boxes (one image).
+        While a profiler runs, the proposals' NMS is the span `rpn_nms`."""
         cfg = self.cfg
         scores = torch.softmax(rpn_logits, -1)[:, 1]
         k = min(cfg.pre_nms_limit, scores.shape[0])
@@ -544,8 +547,9 @@ class MaskRCNN(nn.Module):
         boxes = apply_deltas(self.anchors[top_idx],
                              rpn_deltas[top_idx] * self.bbox_std)
         boxes = torch.clamp(boxes, 0.0, 1.0)
-        sel, valid = nms_fixed(boxes, top_scores, cfg.post_nms_proposals,
-                               cfg.rpn_nms_threshold)
+        with span("rpn_nms"):
+            sel, valid = nms_fixed(boxes, top_scores, cfg.post_nms_proposals,
+                                   cfg.rpn_nms_threshold)
         props = torch.where(valid[:, None], boxes[sel], 0.0)
         return props, valid
 

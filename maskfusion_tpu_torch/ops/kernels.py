@@ -34,6 +34,7 @@ shape (``launch_shape``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -45,6 +46,8 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+
+from maskfusion_tpu_torch.utils.stopwatch import count, recording
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -331,6 +334,23 @@ def predict_l0_scan_plain(pos, normal, radius, live, fx, fy, cx, cy,
     return best_z, best_src
 
 
+@functools.lru_cache(maxsize=16)
+def _live_weights(H: int, W: int, window: int, device: torch.device
+                  ) -> torch.Tensor:
+    """(2, H, W) int64: ones, and how many pixels' +-window boxes hold
+    each texel; summed against `live`, the live texels and live taps (in
+    the dtype of the sum, which casts no input).  Built on the host and
+    sent without waiting, so it launches nothing."""
+    def cover(n):
+        i = torch.arange(n, dtype=torch.int64)
+        return (i + window).clamp(max=n - 1) - (i - window).clamp(min=0) + 1
+    taps = cover(H)[:, None] * cover(W)[None, :]
+    w = torch.stack([torch.ones_like(taps), taps])
+    if device.type == "cuda":
+        w = w.pin_memory()
+    return w.to(device, non_blocking=True)
+
+
 def predict_l0_scan(pos: torch.Tensor, normal: torch.Tensor,
                     radius: torch.Tensor, live: torch.Tensor,
                     fx: float, fy: float, cx: float, cy: float,
@@ -341,7 +361,18 @@ def predict_l0_scan(pos: torch.Tensor, normal: torch.Tensor,
     Returns best_z (H, W) f32 (+inf: none) and best_src (H, W) int32, the
     winning tap's y*W + x (-1: none).  CUDA kernel csrc/predict_l0_scan.cu;
     `exact_division` divides every tap with __fdiv_rn in place of its fast
-    division (the check that both give the same results)."""
+    division (the check that both give the same results).
+
+    While a profiler runs, each call records the counter `scan_live` (the
+    work these inputs need, for the kernel's roofline): H, W, `window`,
+    `live` the live texels and `live_taps` the live texels over every
+    pixel's +-window box, both device tensors read after the run."""
+    if recording():
+        H, W = live.shape
+        # two launches: the product and one reduction giving both sums
+        n = (live * _live_weights(H, W, int(window), live.device)).sum((1, 2))
+        count("scan_live", H=H, W=W, window=int(window), live=n[0],
+              live_taps=n[1])
     if radius.device.type == "cpu":
         return predict_l0_scan_plain(pos, normal, radius, live, fx, fy, cx,
                                      cy, max_depth, window)

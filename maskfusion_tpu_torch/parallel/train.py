@@ -39,6 +39,7 @@ from maskfusion_tpu_torch.maskrcnn.model import (MaskRCNN, MaskRCNNConfig,
                                                  init_params_)
 from maskfusion_tpu_torch.maskrcnn.optim import Optimizer
 from maskfusion_tpu_torch.parallel import mesh as mesh_lib
+from maskfusion_tpu_torch.utils.stopwatch import span
 
 
 class TrainState(NamedTuple):
@@ -73,6 +74,10 @@ def create_train_step(cfg: MaskRCNNConfig, learning_rate: float = 1e-4,
     the batch's mean loss (a device scalar).  With a mesh every rank passes
     the global batch and the same generator state (or draws); B must be a
     multiple of the dp axis; the loss is the global mean on every rank.
+    While a profiler runs, a step records the spans ``forward`` (the batch
+    loss, with the RPN's ``rpn_nms`` inside), ``backward`` and
+    ``optimizer`` (the gradient averaging over the mesh and the Adam
+    update), each with the state's step number.
 
     full_loss=True optimises the complete objective (RPN class and box,
     box head class and box, mask head through proposal-target sampling);
@@ -112,19 +117,23 @@ def create_train_step(cfg: MaskRCNNConfig, learning_rate: float = 1e-4,
                 raise ValueError(f"batch {B} does not split over dp={D}")
             c = mesh.get_local_rank("dp")
             rows = slice(c * B // D, (c + 1) * B // D)
-        loss = model.batch_loss(images[rows], gt_boxes[rows],
-                                gt_classes[rows], gt_valid[rows],
-                                gt_masks[rows], draws[rows], full_loss)
-        opt.zero_grad()
-        loss.backward()
+        with span("forward", state.step):
+            loss = model.batch_loss(images[rows], gt_boxes[rows],
+                                    gt_classes[rows], gt_valid[rows],
+                                    gt_masks[rows], draws[rows], full_loss)
+        with span("backward", state.step):
+            opt.zero_grad()
+            loss.backward()
         loss = loss.detach()
-        if mesh is not None:
-            mesh_lib.average_held_out_grads(mesh_lib.held_out_params(model))
-            # the global mean, replicated (out_shardings=(None, repl))
-            loss = loss.clone()
-            dist.all_reduce(loss)
-            loss /= dist.get_world_size()
-        opt.step()
+        with span("optimizer", state.step):
+            if mesh is not None:
+                mesh_lib.average_held_out_grads(
+                    mesh_lib.held_out_params(model))
+                # the global mean, replicated (out_shardings=(None, repl))
+                loss = loss.clone()
+                dist.all_reduce(loss)
+                loss /= dist.get_world_size()
+            opt.step()
         return TrainState(model, opt, state.step + 1), loss
 
     return init_fn, step_fn

@@ -1,52 +1,200 @@
-"""Per-stage wall-time telemetry.
+"""Per-stage wall-time telemetry, and the port's span log.
 
-Equivalent of the reference Stopwatch singleton (Core/Utils/Stopwatch.h:64-170):
-named TICK/TOCK sections aggregated per frame, optionally UDP-broadcast in the
-same serialised format cadence (sendAll every ~10 s to 127.0.0.1:45454) so the
-ElasticFusion external viewer keeps working.  Also exposes the 30 FPS frameskip
-governor's decision input (MainController.cpp:487-489).
+``Stopwatch`` is the equivalent of the reference Stopwatch singleton
+(Core/Utils/Stopwatch.h:64-170): named TICK/TOCK sections aggregated per
+name, and the 30 FPS frameskip governor's decision input
+(MainController.cpp:487-489).  Copy of ``maskfusion_tpu/utils/stopwatch.py``
+for the PyTorch port, without its UDP export: the reference broadcasts its
+sections every ~10 s to 127.0.0.1:45454 for ElasticFusion's external
+viewer, a program that is not part of this system, and no caller of either
+package turned the export on.  Scopes read the host's wall clock, so on a
+card they time the host's dispatch of the work, not the device's execution
+of it (no scope synchronises).
 
-Copy of ``maskfusion_tpu/utils/stopwatch.py`` for the PyTorch port.  Scopes
-read the host's wall clock, so on a card they time the host's dispatch of
-the work, not the device's execution of it (no scope synchronises).
+The span log.  While a torch profiler is active on the calling thread
+(``torch.profiler.profile``, with CPU activity, CUDA activity or both),
+every ``Stopwatch.scope`` and every ``span`` appends one record to a
+process-wide log, and ``count`` appends a counter; at any other time
+nothing is recorded and a span costs one check.  A record holds its kind,
+name, frame or step id (a span without one takes its parent's), start and
+end in ns of ``time.time_ns()`` -- the clock the profiler stamps its host
+events with (``_KinetoEvent.start_ns()``), so a span brackets the
+operations and CUDA runtime calls it issued --, the index of the span it
+opened inside (-1: none), the thread id and, for a counter, its values,
+which may be device tensors: they are read by ``read_log``, after the run, so
+recording never waits on the device.  The log keeps at most ``LOG_CAP``
+records and counts the ones it had to drop.
 """
 
 from __future__ import annotations
 
 import contextlib
-import socket
-import struct
+import threading
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, List, Optional
+
+from torch._C._autograd import _profiler_enabled as recording
+
+LOG_CAP = 1_000_000
+SPAN, COUNTER = "span", "counter"
+# a record: [kind, name, id, start_ns, end_ns, parent, thread id, values]
+KIND, NAME, ID, START, END, PARENT, TID, VALUES = range(8)
+
+
+class SpanLog:
+    """The records of the spans and counters taken while a profiler ran."""
+
+    def __init__(self, cap: int = LOG_CAP):
+        self.cap = cap
+        self.records: List[list] = []
+        self.dropped = 0
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def _stack(self) -> List[int]:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+    def _append(self, kind: str, name: str, id_, start: int, end,
+                parent: int, values: dict) -> Optional[int]:
+        if id_ is None and 0 <= parent < len(self.records):
+            id_ = self.records[parent][ID]
+        with self._lock:
+            if len(self.records) >= self.cap:
+                self.dropped += 1
+                return None
+            self.records.append([kind, name, id_, start, end, parent,
+                                 threading.get_ident(), values])
+            return len(self.records) - 1
+
+    def open(self, name: str, id_=None) -> Optional[int]:
+        """Start a span inside the thread's innermost open one; returns
+        its index for ``close`` (None: the log is full)."""
+        t = time.time_ns()
+        st = self._stack()
+        idx = self._append(SPAN, name, id_, t, None, st[-1] if st else -1,
+                           {})
+        if idx is not None:
+            st.append(idx)
+        return idx
+
+    def close(self, idx: Optional[int]) -> None:
+        if idx is None:
+            return
+        self.records[idx][END] = time.time_ns()
+        st = self._stack()
+        if idx in st:
+            del st[st.index(idx):]
+
+    def since(self, name: str, id_, start_ns: int) -> None:
+        """A span that started at ``start_ns`` and ends now, outside the
+        nesting of the open spans (it may cross frames)."""
+        self._append(SPAN, name, id_, start_ns, time.time_ns(), -1, {})
+
+    def count(self, name: str, id_=None, values=None) -> None:
+        st = self._stack()
+        t = time.time_ns()
+        self._append(COUNTER, name, id_, t, t, st[-1] if st else -1,
+                     values or {})
+
+    def read(self) -> List[dict]:
+        """The records as dicts, each tensor value read as a number (or a
+        list of them)."""
+        out = []
+        for r in list(self.records):
+            values = {k: (v.tolist() if hasattr(v, "tolist") else v)
+                      for k, v in r[VALUES].items()}
+            out.append({"kind": r[KIND], "name": r[NAME], "id": r[ID],
+                        "start_ns": r[START], "end_ns": r[END],
+                        "parent": r[PARENT], "tid": r[TID],
+                        "values": values})
+        return out
+
+    def clear(self) -> None:
+        with self._lock:
+            self.records.clear()
+            self.dropped = 0
+            self._local = threading.local()
+
+
+LOG = SpanLog()
+
+
+class _Span:
+    __slots__ = ("name", "id", "idx")
+
+    def __init__(self, name: str, id_):
+        self.name, self.id = name, id_
+
+    def __enter__(self):
+        self.idx = LOG.open(self.name, self.id)
+        return self
+
+    def __exit__(self, *exc):
+        LOG.close(self.idx)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, id_=None):
+    """A context manager that records a span of ``name`` for frame or step
+    ``id_`` (None: its parent's) while a profiler runs, and does nothing
+    otherwise."""
+    if not recording():
+        return _OFF
+    return _Span(name, id_)
+
+
+def span_since(name: str, id_, start_ns: int) -> None:
+    """Records the span from ``start_ns`` (``time.time_ns()``) to now while
+    a profiler runs."""
+    if recording():
+        LOG.since(name, id_, start_ns)
+
+
+def count(name: str, id_=None, **values) -> None:
+    """Records a counter while a profiler runs; values may be device
+    tensors, read when the log is read."""
+    if recording():
+        LOG.count(name, id_, values)
+
+
+def read_log() -> List[dict]:
+    """Every record taken so far (``SpanLog.read``)."""
+    return LOG.read()
+
+
+def clear_log() -> None:
+    LOG.clear()
 
 
 class Stopwatch:
-    SEND_INTERVAL_S = 10.0
-    PORT = 45454
-
-    def __init__(self, enable_udp: bool = False):
+    def __init__(self):
         self.timings_ms: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
         self.last_ms: Dict[str, float] = {}
-        self.enable_udp = enable_udp
-        self._last_send = time.monotonic()
-        self._sock = None
 
     @contextlib.contextmanager
     def scope(self, name: str):
+        """Adds the block's host time to ``name``'s aggregate, and records
+        it as a span of the log while a profiler runs."""
+        idx = LOG.open(name) if recording() else None
         t0 = time.perf_counter()
         try:
             yield
         finally:
             self.record(name, (time.perf_counter() - t0) * 1000.0)
+            LOG.close(idx)
 
     def record(self, name: str, ms: float):
         self.timings_ms[name] += ms
         self.counts[name] += 1
         self.last_ms[name] = ms
-        if self.enable_udp:
-            self._maybe_send()
 
     def mean_ms(self, name: str) -> float:
         c = self.counts.get(name, 0)
@@ -60,20 +208,3 @@ class Stopwatch:
         exceeded the budget (MainController.cpp:487-489)."""
         run = self.last_ms.get("Run", 0.0)
         return int(run / budget_ms) if run > budget_ms else 0
-
-    # --- UDP export in the reference's wire format: int32 count, then per
-    #     section a null-terminated name + float64 ms ---
-    def _maybe_send(self):
-        now = time.monotonic()
-        if now - self._last_send < self.SEND_INTERVAL_S:
-            return
-        self._last_send = now
-        try:
-            if self._sock is None:
-                self._sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-            payload = struct.pack("<i", len(self.last_ms))
-            for k, v in self.last_ms.items():
-                payload += k.encode() + b"\0" + struct.pack("<d", v)
-            self._sock.sendto(payload, ("127.0.0.1", self.PORT))
-        except OSError:
-            pass

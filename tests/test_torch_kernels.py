@@ -1012,3 +1012,60 @@ def test_sharded_step_on_one_card_over_nccl(cuda_device):
                                for k in ref])
         assert diff.max() <= 2 * lr * (i + 1), (i, diff.max())
         assert (diff > 1e-6).mean() <= 1e-4, (i, (diff > 1e-6).mean())
+
+
+@pytest.mark.cuda
+def test_spans_on_the_card_under_cuda_activity(cuda_device):
+    """Under CUDA-only activity, as the benchmark profiles: the span log
+    records (the profiler reads as enabled), a span brackets the
+    cudaLaunchKernel calls of the kernels it launched on the profiler's
+    clock, and the counters' device tensors add no synchronise (none in the
+    span; the trace's are the test's closing call and the profiler's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from maskfusion_tpu_torch.utils import stopwatch
+
+    stopwatch.clear_log()
+    g = torch.Generator().manual_seed(4)
+    H, W = 120, 160
+    live = (torch.rand(H, W, generator=g) < 0.4).to(cuda_device)
+    args = [torch.rand(H, W, 3, generator=g).to(cuda_device),
+            torch.rand(H, W, 3, generator=g).to(cuda_device),
+            torch.rand(H, W, generator=g).to(cuda_device), live,
+            130.0, 130.0, 80.0, 60.0, 5.0]
+    a = torch.randn(256, 256, device=cuda_device)
+    kernels.predict_l0_scan(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        enabled = bool(stopwatch.recording())
+        with stopwatch.span("work", 1):
+            b = a @ a
+            stopwatch.count("sum", n=b.sum())
+            kernels.predict_l0_scan(*args)
+        torch.cuda.synchronize()
+    assert enabled
+    log = stopwatch.read_log()
+    assert [(r["name"], r["id"]) for r in log] == \
+        [("work", 1), ("sum", 1), ("scan_live", 1)]
+    span = log[0]
+    events = prof.profiler.kineto_results.events()
+    launches = [e for e in events if e.name().startswith(
+        ("cudaLaunchKernel", "cuLaunchKernel"))]
+    assert len(launches) >= 3, [e.name() for e in events]
+    for e in launches:
+        assert span["start_ns"] <= e.start_ns() <= e.end_ns() <= \
+            span["end_ns"], (e.name(), e.start_ns(), e.end_ns(), span)
+    syncs = [e for e in events if e.name() in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize",
+        "cudaEventSynchronize")]
+    assert not [e.name() for e in syncs
+                if e.end_ns() >= span["start_ns"]
+                and e.start_ns() <= span["end_ns"]]
+    assert syncs, "the closing synchronise is not in the trace"
+    lv = live.cpu().numpy()
+    assert log[2]["values"]["live"] == int(lv.sum())
+    print(f"span {span['end_ns'] - span['start_ns']} ns holds "
+          f"{len(launches)} launches; first launch "
+          f"{launches[0].start_ns() - span['start_ns']} ns after its start; "
+          "synchronises at (ns after the span's end) "
+          f"{[e.start_ns() - span['end_ns'] for e in syncs]}")
