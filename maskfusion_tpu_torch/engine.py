@@ -97,8 +97,13 @@ The synchronous frame tracks on the engine's device (its fuse splits).
 
 The JAX package jits each stage, donates the map buffers and prewarms its
 compile cache (`prewarm_next_buckets`, `_note_prewarm`).  PyTorch runs
-eagerly, so none of that has a counterpart here: the map's buffers are
-updated in place instead of donated, and nothing is compiled ahead.
+eagerly: the map's buffers are updated in place instead of donated, and
+nothing is compiled ahead.  On a card the tracking solves alone (`track`,
+`track_objects`, `track_objects_win`: the model pyramids and the
+Gauss-Newton solve) replay CUDA graphs (tracking/graphs), one for each
+shape of their inputs, captured the first time it is met
+(`track_graph_captures`, `track_graph_replays`; the counter
+``track_graph`` in the span log); on the CPU they run eagerly.
 
 Pose conventions (as the reference): every model's `pose` is the camera
 pose in that model's frame; model 0's is camera->world, and an object's
@@ -131,8 +136,10 @@ from maskfusion_tpu_torch.ops import splat as splat_ops
 from maskfusion_tpu_torch.parallel import multimodel
 from maskfusion_tpu_torch.segmentation import create_segmenter
 from maskfusion_tpu_torch.segmentation.mf_segmentation import ModelInfo
+from maskfusion_tpu_torch.tracking import graphs
 from maskfusion_tpu_torch.tracking import odometry as odo
-from maskfusion_tpu_torch.utils.stopwatch import Stopwatch, span, span_since
+from maskfusion_tpu_torch.utils.stopwatch import (Stopwatch, count, span,
+                                                  span_since)
 from maskfusion_tpu_torch.utils.tuning import get_tuning
 
 # Model ids are uint8 mask labels.  255 is the semantic-ignore label and 254
@@ -274,6 +281,17 @@ def _host_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def _flat(pyr: odo.FramePyramids) -> tuple:
+    """A frame's pyramids as one tuple of tensors, field by field."""
+    return tuple(a for field in pyr for a in field)
+
+
+def _frame_pyramids(flat, levels: int) -> odo.FramePyramids:
+    """The inverse of `_flat`."""
+    return odo.FramePyramids(*(tuple(flat[i:i + levels])
+                               for i in range(0, len(flat), levels)))
+
+
 def _window_size(cfg: Config, H: int, W: int) -> int:
     """The JAX package's static object-window size (0: windowing off),
     engine.py:663-667."""
@@ -373,6 +391,12 @@ class MaskFusion:
         # (the pipelined schedules' only synchronise: a forced drain, or a
         # drain asked for)
         self.forced_waits = 0
+        # the tracking solves' CUDA graphs (tracking/graphs), the graphed
+        # calls (each replays a graph, a capturing one too) and those that
+        # captured one
+        self._track_graphs = graphs.SolveGraphs()
+        self.track_graph_replays = 0
+        self.track_graph_captures = 0
         # the bilateral's metric footprint stays constant across
         # resolutions: pixel radius and spatial sigma scale with width
         bl_scale = W / 640.0
@@ -409,15 +433,21 @@ class MaskFusion:
         (`is_object`) tracks with the object weights and damping; `warm`,
         the camera's world motion from the global track, starts its solve
         from "world-static" (Config.object_warm_start)."""
-        res = self._solve(state.pose, self._model_pyramids(
-            state.pose, state.pred_vmap, state.pred_nmap, state.pred_rgb),
-            state.so3_intensity, mask_id, prep.frame_pyr, is_object, warm,
-            self.intr)
-        return TrackResult(
-            pose=se3.make_pose(res.R, res.t), delta=res.delta,
-            icp_error=res.icp_error, icp_count=res.icp_count,
-            rgb_error=res.rgb_error, rgb_count=res.rgb_count,
-            cov_diag=torch.diagonal(odo.covariance(res.A)))
+        L = self.cfg.num_pyr_levels
+
+        def solve(pose, pv, pn, pc, so3, warm, mask_id, *frame):
+            res = self._solve(pose, self._model_pyramids(pose, pv, pn, pc),
+                              so3, mask_id, _frame_pyramids(frame, L),
+                              is_object, warm, self.intr)
+            return (se3.make_pose(res.R, res.t), res.delta, res.icp_error,
+                    res.icp_count, res.rgb_error, res.rgb_count,
+                    torch.diagonal(odo.covariance(res.A)))
+
+        return TrackResult(*self._graphed(
+            "track", is_object, solve,
+            (state.pose, state.pred_vmap, state.pred_nmap, state.pred_rgb,
+             state.so3_intensity, warm, int(mask_id)) + _flat(prep.frame_pyr),
+            slots=1))
 
     def track_objects(self, states: List[MapState], mask_ids,
                       prep: Preprocessed,
@@ -434,10 +464,19 @@ class MaskFusion:
                                            "pred_rgb", "so3_intensity"))
         if not isinstance(mask_ids, torch.Tensor):
             mask_ids = self._upload(np.asarray(mask_ids, np.int32))
-        res = self._solve(pose, self._model_pyramids(pose, pv, pn, pc), so3,
-                          mask_ids, prep.frame_pyr, True, warm, self.intr)
-        return (se3.make_pose(res.R, res.t),
-                torch.linalg.vector_norm(res.delta[:, :3, 3], dim=-1))
+        L = self.cfg.num_pyr_levels
+
+        def solve(pose, pv, pn, pc, so3, mask_ids, warm, *frame):
+            res = self._solve(pose, self._model_pyramids(pose, pv, pn, pc),
+                              so3, mask_ids, _frame_pyramids(frame, L), True,
+                              warm, self.intr)
+            return (se3.make_pose(res.R, res.t),
+                    torch.linalg.vector_norm(res.delta[:, :3, 3], dim=-1))
+
+        return tuple(self._graphed(
+            "track_objects", True, solve,
+            (pose, pv, pn, pc, so3, mask_ids, warm) + _flat(prep.frame_pyr),
+            slots=len(states)))
 
     def track_objects_win(self, states: List[MapState],
                           mask_ids: torch.Tensor, windows,
@@ -455,7 +494,8 @@ class MaskFusion:
         computed on the halo image before the trim; the SO(3) intensity is
         cropped at the coarsest level.  Model pixels projecting out of the
         window drop out of the solve (the JAX package's documented
-        deviation from the full-frame reference path)."""
+        deviation from the full-frame reference path).  The crops, whose
+        offsets are host numbers, run before the (graphed) solve."""
         cfg = self.cfg
         OW = self._obj_window
         L = cfg.num_pyr_levels
@@ -477,56 +517,94 @@ class MaskFusion:
                                 for st, (oy, ox) in zip(states, windows)])
 
         pose = torch.stack([st.pose for st in states])
-        padded = self._model_pyramids(pose, halo("pred_vmap", float("nan")),
-                                      halo("pred_nmap", float("nan")),
-                                      halo("pred_rgb", 0.0))
-
-        def trim(a, lv):
-            p, n = P >> lv, OW >> lv
-            return a[:, p:p + n, p:p + n]
-
-        model = odo.ModelPyramids(
-            *(tuple(trim(a, lv) for lv, a in enumerate(f))
-              for f in padded[:4]),
-            last_valids=tuple(trim(red.rgb_last_valid(g), lv)
-                              for lv, g in enumerate(padded.intensities)))
         so3 = torch.stack([st.so3_intensity for st in states])
         lc = L - 1
         so3 = torch.stack([so3[k, oy >> lc:(oy >> lc) + (OW >> lc),
                                ox >> lc:(ox >> lc) + (OW >> lc)]
                            for k, (oy, ox) in enumerate(windows)])
-        i = self.intr
-        intr = CameraIntrinsics(i.fx, i.fy, i.cx - origins[:, 1:2],
-                                i.cy - origins[:, 0:1])
-        res = self._solve(pose, model, so3, mask_ids, frame, True, warm,
-                          intr)
-        return (se3.make_pose(res.R, res.t),
-                torch.linalg.vector_norm(res.delta[:, :3, 3], dim=-1))
+
+        def trim(a, lv):
+            p, n = P >> lv, OW >> lv
+            return a[:, p:p + n, p:p + n]
+
+        def solve(pose, pv, pn, pc, so3, mask_ids, origins, warm, *frame):
+            padded = self._model_pyramids(pose, pv, pn, pc)
+            model = odo.ModelPyramids(
+                *(tuple(trim(a, lv) for lv, a in enumerate(f))
+                  for f in padded[:4]),
+                last_valids=tuple(trim(red.rgb_last_valid(g), lv)
+                                  for lv, g in enumerate(padded.intensities)))
+            i = self.intr
+            intr = CameraIntrinsics(i.fx, i.fy, i.cx - origins[:, 1:2],
+                                    i.cy - origins[:, 0:1])
+            res = self._solve(pose, model, so3, mask_ids,
+                              _frame_pyramids(frame, L), True, warm, intr)
+            return (se3.make_pose(res.R, res.t),
+                    torch.linalg.vector_norm(res.delta[:, :3, 3], dim=-1))
+
+        return tuple(self._graphed(
+            "track_objects_win", True, solve,
+            (pose, halo("pred_vmap", float("nan")),
+             halo("pred_nmap", float("nan")), halo("pred_rgb", 0.0), so3,
+             mask_ids, origins, warm) + _flat(frame),
+            slots=len(states)))
+
+    def _graphed(self, path: str, is_object: bool, fn, inputs: tuple,
+                 slots: int):
+        """`fn(*inputs)`, the tracking solve of `path`: run as it is for
+        tensors on the CPU; on a card, the replay of its CUDA graph
+        (tracking/graphs), captured at the first call of its key
+        (`_graph_key`).  Counts the calls (`track_graph_replays`) and the
+        captures, and records each call as the counter ``track_graph``
+        (`captured`, `slots`) while a profiler runs."""
+        dev = inputs[0].device
+        if dev.type != "cuda":
+            return fn(*inputs)
+
+        def keep():
+            # the levels' K and K^-1, cached by odometry, live as long as
+            # the graph that reads them
+            return tuple(odo._k_matrices(self.intr, lv, dev)
+                         for lv in range(self.cfg.num_pyr_levels))
+
+        with torch.cuda.device(dev):
+            out, captured = self._track_graphs.run(
+                self._graph_key(path, is_object, inputs), fn, inputs, keep)
+        self.track_graph_replays += 1
+        self.track_graph_captures += int(captured)
+        count("track_graph", captured=int(captured), slots=slots)
+        return out
+
+    def _graph_key(self, path: str, is_object: bool, inputs: tuple
+                   ) -> tuple:
+        """The key of a graph of the solve of `path`: what it bakes in
+        (the path, whether an object tracks, the intrinsics, the window,
+        the pyramid, every option of the solve) and its inputs'
+        signatures (shapes and dtypes; a host int, a mask id, by its
+        type alone: it enters the graph as a device value)."""
+        opts = self._solve_options(is_object)
+        return graphs.graph_key(
+            (path, is_object, self.intr, self._obj_window,
+             self.cfg.num_pyr_levels, self.cfg.max_depth_rgb,
+             tuple((k, tuple(v) if isinstance(v, list) else v)
+                   for k, v in sorted(opts.items()))), inputs)
 
     def _model_pyramids(self, pose, pred_vmap, pred_nmap, pred_rgb):
         return odo.build_model_pyramids(
             pred_vmap, pred_nmap, pred_rgb, pose, self.cfg.num_pyr_levels,
             self.cfg.max_depth_rgb)
 
-    def _solve(self, pose, model_pyr: odo.ModelPyramids, so3_intensity,
-               mask_id, frame_pyr: odo.FramePyramids, is_object: bool,
-               warm: Optional[torch.Tensor],
-               intr: CameraIntrinsics) -> odo.OdometryResult:
-        """The tracking solve of one model, or of N models stacked on a
-        leading slot axis (an (N,) tensor of mask ids)."""
+    def _solve_options(self, is_object: bool) -> dict:
+        """The options of a model's tracking solve, from the Config."""
         cfg = self.cfg
-        pose0 = pose if warm is None else pose @ warm
-        so3_pyr = [None] * (cfg.num_pyr_levels - 1) + [so3_intensity]
-        return odo.get_incremental_transformation(
-            pose0[..., :3, 3], pose0[..., :3, :3], frame_pyr, model_pyr,
-            tuple(so3_pyr), intr,
+        return dict(
             rgb_only=cfg.rgb_only,
             icp_weight=(cfg.object_icp_weight if is_object
                         else cfg.icp_weight),
             gn_damping=(cfg.object_gn_damping if is_object else 0.0),
             rgb_finest_only=(is_object and cfg.object_rgb_finest_only),
             pyramid=cfg.pyramid, fast_odom=cfg.fast_odom,
-            use_so3=cfg.use_so3, mask_id=mask_id,
+            use_so3=cfg.use_so3,
             use_mask_rgb=cfg.mask_rgb_residual,
             use_mask_icp=cfg.mask_icp_residual,
             dist_thresh=cfg.dist_threshold,
@@ -538,6 +616,19 @@ class MaskFusion:
             num_levels=cfg.num_pyr_levels,
             assoc_period=cfg.assoc_period,
             gn_step_eps=cfg.gn_step_eps)
+
+    def _solve(self, pose, model_pyr: odo.ModelPyramids, so3_intensity,
+               mask_id, frame_pyr: odo.FramePyramids, is_object: bool,
+               warm: Optional[torch.Tensor],
+               intr: CameraIntrinsics) -> odo.OdometryResult:
+        """The tracking solve of one model, or of N models stacked on a
+        leading slot axis (an (N,) tensor of mask ids)."""
+        pose0 = pose if warm is None else pose @ warm
+        so3_pyr = [None] * (self.cfg.num_pyr_levels - 1) + [so3_intensity]
+        return odo.get_incremental_transformation(
+            pose0[..., :3, 3], pose0[..., :3, :3], frame_pyr, model_pyr,
+            tuple(so3_pyr), intr, mask_id=mask_id,
+            **self._solve_options(is_object))
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the device without waiting for the device's

@@ -539,21 +539,14 @@ def test_batched_windowed_path_on_the_card(cuda_device, monkeypatch):
     frame after the second spawn on: the objects track in ONE solve (a slot
     axis of 2), fuse in their windows, and the scan kernel launches once
     for each of the frame's projections (3 models) and predictions (3).
-    The batched solve itself never waits on the device."""
+    The batched solve itself never waits on the device.  (The solves are
+    counted as the engine issues them: on the card each replays a CUDA
+    graph, and a replay calls no Python of the solve.)"""
     from maskfusion_tpu_torch.camera import CameraIntrinsics, Resolution
     from maskfusion_tpu_torch.config import Config
     from maskfusion_tpu_torch.engine import MaskFusion
     from maskfusion_tpu_torch.frame import FrameData
-    from maskfusion_tpu_torch.tracking import odometry as todo
 
-    solves = []
-    solve = todo.get_incremental_transformation
-
-    def counted(t_prev, *a, **k):
-        solves.append(tuple(t_prev.shape[:-1]))
-        return solve(t_prev, *a, **k)
-
-    monkeypatch.setattr(todo, "get_incremental_transformation", counted)
     fx, fy, cx, cy, w, h = chip_smoke.SMALL
     eng = MaskFusion(Resolution(w, h), CameraIntrinsics(fx, fy, cx, cy),
                      Config(global_surfel_capacity=1 << 16,
@@ -563,6 +556,16 @@ def test_batched_windowed_path_on_the_card(cuda_device, monkeypatch):
                             model_spawn_offset=0, object_window=104,
                             object_window_margin=24, min_object_slots=2),
                      device=cuda_device)
+    solves = []
+    graphed = eng._graphed
+
+    def counted(path, is_object, fn, inputs, slots):
+        # the slot axis of the solve, from the pose it is given: () for
+        # one model's, (N,) batched
+        solves.append(tuple(inputs[0].shape[:-2]))
+        return graphed(path, is_object, fn, inputs, slots)
+
+    monkeypatch.setattr(eng, "_graphed", counted)
     for i, (rgb, depth, lab) in enumerate(
             chip_smoke.synthetic_two_objects(6)):
         solves.clear()
