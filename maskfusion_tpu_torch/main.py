@@ -115,10 +115,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--object-capacity", type=int, default=1 << 20)
     p.add_argument("--max-frames", type=int, help="alias for -e")
     p.add_argument("--nn", dest="embedded_nn", action="store_true",
-                   help="run the embedded Mask R-CNN (full-width "
-                        "ResNet-50-FPN, seeded random weights) on its own "
-                        "thread and CUDA stream for frames without "
-                        "precomputed masks, through a -frameQ delay queue")
+                   help="run the embedded Mask R-CNN (matterport's COCO "
+                        "ResNet-101-FPN at 1024 px with frozen BatchNorm "
+                        "and 6000/1000 proposals, seeded random weights) "
+                        "on its own thread and CUDA stream for frames "
+                        "without precomputed masks, through a -frameQ "
+                        "delay queue")
     p.add_argument("--toml", dest="toml_config",
                    help="config.toml with class_names/filter_classes/"
                         "score_threshold/trackable_classes")
@@ -263,10 +265,11 @@ def main(argv=None, device=None):
     if args.embedded_nn and not reader.has_masks():
         from maskfusion_tpu_torch.maskrcnn.inference import (
             FrameQueue, MaskRCNNInference, MaskRCNNWorker)
-        from maskfusion_tpu_torch.maskrcnn.model import MaskRCNNConfig
+        from maskfusion_tpu_torch.maskrcnn.model import (
+            matterport_coco_config)
 
         inference = MaskRCNNInference(
-            MaskRCNNConfig(score_threshold=cfg.score_threshold),
+            matterport_coco_config(cfg.score_threshold),
             filter_classes=cfg.filter_classes, device=device)
         nn_queue = FrameQueue(cfg.frame_queue_size)
         nn_worker = MaskRCNNWorker(inference, nn_queue)

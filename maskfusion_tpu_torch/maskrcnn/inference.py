@@ -14,11 +14,19 @@ results into pinned memory, waiting on its own event only: the SLAM frames
 queued on the default stream by the prefused schedule (which issues no
 synchronise) are never waited for, and never wait for it.  No OpenCV: the
 two resizes are ``maskrcnn.resize``'s.
+
+The command line's ``--nn`` serves ``model.matterport_coco_config``
+(MaskFusion's labeller, ResNet-101-FPN at 1024 px) with the Config's score
+threshold and class filter; ``MaskRCNNConfig()`` stays this class's
+default.  While a profiler runs, each ``execute`` is the span ``label``
+(the root on the worker's thread), and the worker's stopwatch keeps the
+time it waits with no frame to label (``idle``) at all times.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,6 +39,7 @@ from maskfusion_tpu_torch.maskrcnn.model import (MaskRCNN, MaskRCNNConfig,
                                                  to_compute_dtype_)
 from maskfusion_tpu_torch.maskrcnn.resize import (resize_mask_f32,
                                                   resize_rgb_u8)
+from maskfusion_tpu_torch.utils.stopwatch import Stopwatch, span
 
 # COCO class list (matterport ordering; config.toml.in class_names)
 COCO_CLASS_NAMES = [
@@ -181,11 +190,13 @@ class MaskRCNNInference:
 
     def execute(self, frame: FrameData) -> FrameData:
         """Label a frame in place (MaskRCNN::executeSequential)."""
-        boxes, masks, classes, scores, valid = self.detect(frame.host_rgb())
-        id_img, class_ids, rois = generate_id_image(
-            boxes, masks, classes, scores, valid,
-            frame.height, frame.width,
-            self.cfg.score_threshold, self.filter_classes)
+        with span("label"):
+            boxes, masks, classes, scores, valid = self.detect(
+                frame.host_rgb())
+            id_img, class_ids, rois = generate_id_image(
+                boxes, masks, classes, scores, valid,
+                frame.height, frame.width,
+                self.cfg.score_threshold, self.filter_classes)
         frame.class_ids = class_ids
         frame.rois = rois
         frame.mask = id_img              # last: the queue reads it as done
@@ -199,13 +210,15 @@ class MaskRCNNWorker:
     repeatedly labels the newest unlabelled frame in the queue; the engine
     only consumes frames once their masks arrived (or the queue overflows).
     An exception in the thread stops it and is raised again by ``stop()``
-    (and ``check()``)."""
+    (and ``check()``).  ``stopwatch``'s ``idle`` aggregate is the time the
+    thread waited because every queued frame was labelled."""
 
     def __init__(self, inference: MaskRCNNInference, frame_queue):
         self.inference = inference
         self.queue = frame_queue
         self.error: Optional[BaseException] = None
         self.labelled = 0
+        self.stopwatch = Stopwatch()
         self._stop = threading.Event()
         self.thread = threading.Thread(target=self._loop, daemon=True)
         self.thread.start()
@@ -215,7 +228,10 @@ class MaskRCNNWorker:
             while not self._stop.is_set():
                 frame = self.queue.newest_unlabelled()
                 if frame is None:
+                    t0 = time.perf_counter()
                     self._stop.wait(0.002)
+                    self.stopwatch.record(
+                        "idle", (time.perf_counter() - t0) * 1000.0)
                     continue
                 self.inference.execute(frame)
                 self.labelled += 1

@@ -81,6 +81,27 @@ class MaskRCNNConfig:
     dtype: Any = torch.bfloat16
 
 
+def matterport_coco_config(score_threshold: float = 0.55) -> MaskRCNNConfig:
+    """MaskFusion's labeller: matterport's COCO Mask R-CNN, as
+    ``mask_rcnn_coco.h5`` holds it (``mrcnn/config.py``,
+    ``samples/coco/coco.py``; MaskFusion's ``MaskRCNN.py.in`` loads it):
+    ResNet-101-FPN (BACKBONE "resnet101", TRAIN_BN False, so frozen
+    BatchNorm), IMAGE_MAX_DIM 1024, PRE_NMS_LIMIT 6000,
+    POST_NMS_ROIS_INFERENCE 1000, DETECTION_MAX_INSTANCES 100,
+    RPN_NMS_THRESHOLD 0.7, DETECTION_NMS_THRESHOLD 0.3, 81 classes, FPN and
+    mask head 256 wide, box head 1024, bf16 compute.  ``score_threshold``
+    defaults to MaskFusion's 0.55 (``config.toml.in:33``), which its
+    command line passes in place of matterport's 0.7."""
+    return MaskRCNNConfig(
+        num_classes=81, image_size=1024, pre_nms_limit=6000,
+        post_nms_proposals=1000, max_detections=100, rpn_nms_threshold=0.7,
+        detection_nms_threshold=0.3, score_threshold=score_threshold,
+        roi_pool_size=7, mask_pool_size=14, fpn_channels=256,
+        box_head_dim=1024, mask_head_channels=256,
+        backbone_blocks=(3, 4, 23, 3), norm="frozen_bn",
+        dtype=torch.bfloat16)
+
+
 # --------------------------------------------------------------------------
 # Layers with flax's numerics
 # --------------------------------------------------------------------------
@@ -561,8 +582,15 @@ class MaskRCNN(nn.Module):
         return self.backbone(x)
 
     def forward(self, image) -> Dict[str, torch.Tensor]:
+        """While a profiler runs, the backbone and FPN are the span
+        `label_features`, the proposals' NMS `rpn_nms` and the detections'
+        `det_nms`.  Besides the JAX package's outputs: ``box_deltas`` at
+        every proposal, and ``pick_boxes`` / ``pick_classes``, the
+        detection NMS's picks before the score threshold, at which
+        ``mask_logits`` are taken."""
         cfg = self.cfg
-        feats = self.features(image)
+        with span("label_features"):
+            feats = self.features(image)
         rpn_logits, rpn_deltas = self.rpn(feats)
         out = {"rpn_logits": rpn_logits, "rpn_deltas": rpn_deltas}
         props, prop_valid = self._proposals(rpn_logits[0], rpn_deltas[0])
@@ -572,6 +600,7 @@ class MaskRCNN(nn.Module):
         rois = roi_align(feats, props, cfg.roi_pool_size, cfg)
         cls_logits, box_deltas = self.box_head(rois)
         out["class_logits"] = cls_logits
+        out["box_deltas"] = box_deltas
 
         # detection assembly (one image)
         probs = torch.softmax(cls_logits, -1)
@@ -583,8 +612,9 @@ class MaskRCNN(nn.Module):
                                 best_cls]
         det_boxes = torch.clamp(apply_deltas(props, det_deltas
                                              * self.bbox_std), 0.0, 1.0)
-        sel, valid = nms_fixed(det_boxes, best_score, cfg.max_detections,
-                               cfg.detection_nms_threshold)
+        with span("det_nms"):
+            sel, valid = nms_fixed(det_boxes, best_score, cfg.max_detections,
+                                   cfg.detection_nms_threshold)
         final_boxes = det_boxes[sel]
         final_scores = best_score[sel]
         final_cls = best_cls[sel]
@@ -594,6 +624,8 @@ class MaskRCNN(nn.Module):
         out["detection_scores"] = torch.where(valid, final_scores, 0.0)
         out["detection_classes"] = torch.where(valid, final_cls, 0)
         out["detection_valid"] = valid
+        out["pick_boxes"] = final_boxes
+        out["pick_classes"] = final_cls
 
         mask_rois = roi_align(feats, final_boxes, cfg.mask_pool_size, cfg)
         mask_logits = self.mask_head(mask_rois.permute(0, 3, 1, 2))

@@ -11,9 +11,10 @@ package turned the export on.  Scopes read the host's wall clock, so on a
 card they time the host's dispatch of the work, not the device's execution
 of it (no scope synchronises).
 
-The span log.  While a torch profiler is active on the calling thread
-(``torch.profiler.profile``, with CPU activity, CUDA activity or both),
-every ``Stopwatch.scope`` and every ``span`` appends one record to a
+The span log.  While a torch profiler is active in the process
+(``torch.profiler.profile``, with CPU activity, CUDA activity or both,
+started on any thread), every ``Stopwatch.scope`` and every ``span`` on
+any thread (the Mask R-CNN worker's too) appends one record to a
 process-wide log, and ``count`` appends a counter; at any other time
 nothing is recorded and a span costs one check.  A record holds its kind,
 name, frame or step id (a span without one takes its parent's), start and
@@ -34,7 +35,7 @@ import time
 from collections import defaultdict
 from typing import Dict, List, Optional
 
-from torch._C._autograd import _profiler_enabled as recording
+from torch.autograd import profiler as _profiler
 
 LOG_CAP = 1_000_000
 SPAN, COUNTER = "span", "counter"
@@ -121,6 +122,14 @@ class SpanLog:
 
 
 LOG = SpanLog()
+
+
+def recording() -> bool:
+    """Whether a torch profiler runs in this process.  The profiler's
+    own check (``_profiler_enabled``) sees it only on the thread that
+    started it; ``torch.autograd.profiler`` keeps this process-wide flag
+    for such fast checks, set while a profile runs."""
+    return _profiler._is_profiler_enabled
 
 
 class _Span:

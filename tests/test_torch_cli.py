@@ -278,8 +278,9 @@ def micro_nn(monkeypatch, tmp_path):
     """A 64x64 KLG log of the trained shapes scene (tests/test_engine_nn.py's,
     no masks; one frame more than the reader returns), the default preset
     set to its size, and the CLI's network swapped for the trained micro
-    network on the CPU: the CLI builds its full-width MaskRCNNConfig, whose
-    score threshold and class filter the swap keeps and records."""
+    network on the CPU: the CLI builds MaskFusion's labeller, whose sizes,
+    score threshold and class filter the swap records (and keeps the
+    threshold and filter)."""
     from maskfusion_tpu_torch.maskrcnn import checkpoint_io
     from maskfusion_tpu_torch.maskrcnn import inference
     from maskfusion_tpu_torch.maskrcnn.synthetic_shapes import micro_config
@@ -299,7 +300,11 @@ def micro_nn(monkeypatch, tmp_path):
     def micro(cfg, filter_classes=None, device=None, **_):
         made.append(dict(score_threshold=cfg.score_threshold,
                          filter_classes=filter_classes, device=device,
-                         image_size=cfg.image_size))
+                         image_size=cfg.image_size,
+                         backbone_blocks=cfg.backbone_blocks, norm=cfg.norm,
+                         proposals=(cfg.pre_nms_limit,
+                                    cfg.post_nms_proposals,
+                                    cfg.max_detections)))
         small = dataclasses.replace(micro_config(S),
                                     score_threshold=cfg.score_threshold)
         return real(small, params=params, filter_classes=filter_classes,
@@ -309,12 +314,18 @@ def micro_nn(monkeypatch, tmp_path):
     return log, len(frames) - 1, made
 
 
+# what --nn builds: matterport's COCO Mask R-CNN
+LABELLER = dict(image_size=1024, backbone_blocks=(3, 4, 23, 3),
+                norm="frozen_bn", proposals=(6000, 1000, 100))
+
+
 def test_cli_nn_runs_the_network(micro_nn, tmp_path, capsys):
     """`-l log.klg --nn -frameQ 3` in the multi-object default (prefused):
     the worker labels frames through the delay queue, the flush drains it
     at the end of the log, every frame is processed, the object spawns
-    (poses-1.txt) and the FPS line is printed.  The CLI asks for the
-    full-width network (512 px) with the Config's score threshold."""
+    (poses-1.txt) and the FPS line is printed.  The CLI asks for
+    MaskFusion's labeller (matterport's COCO ResNet-101-FPN: 1024 px,
+    frozen BatchNorm, 6000/1000/100) with the Config's score threshold."""
     log, n, made = micro_nn
     out = tmp_path / "out"
     args = list(NN_ARGS)
@@ -327,7 +338,7 @@ def test_cli_nn_runs_the_network(micro_nn, tmp_path, capsys):
                              text).group(1))
     assert 1 <= labelled <= n
     assert made == [dict(score_threshold=0.55, filter_classes=None,
-                         device="cpu", image_size=512)]
+                         device="cpu", **LABELLER)]
     assert (out / "poses-0.txt").exists() and (out / "poses-1.txt").exists()
 
 
@@ -358,7 +369,7 @@ def test_cli_toml_reaches_the_config(micro_nn, tmp_path, monkeypatch):
     assert (cfg.score_threshold, cfg.filter_classes,
             cfg.trackable_classes) == (0.3, [1, 2], [2])
     assert made == [dict(score_threshold=0.3, filter_classes=[1, 2],
-                         device="cpu", image_size=512)]
+                         device="cpu", **LABELLER)]
 
 
 # --------------------------------------------------------- ground truth
