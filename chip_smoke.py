@@ -460,12 +460,13 @@ def synthetic_depth():
 
 def synthetic_scan_args(device, h: int = 120, w: int = 160):
     """The scan's arguments on synthetic_depth's surfels rendered back at
-    the identity pose, cropped to h x w: (pos, normal, radius, live, fx, fy,
-    cx, cy, max_depth)."""
+    the identity pose, cropped to h x w: (pos, normal, radius, live, intr,
+    max_depth), `intr` the (4,) float32 [fx, fy, cx, cy] on the device."""
     import torch
 
     from maskfusion_tpu_torch.camera import CameraIntrinsics
     from maskfusion_tpu_torch.mapping import surfel_map as sm
+    from maskfusion_tpu_torch.ops import kernels
     from maskfusion_tpu_torch.ops import preprocess as pp
     from maskfusion_tpu_torch.ops import splat
 
@@ -481,8 +482,8 @@ def synthetic_scan_args(device, h: int = 120, w: int = 160):
                                        device=device), 0, eye, intr)
     im = splat.render_index_map(m, eye, intr, h, w, 1.0, 200, 5.0)
     return (im.pos.contiguous(), im.normal.contiguous(),
-            im.radius.contiguous(), im.index >= 0, intr.fx, intr.fy,
-            intr.cx, intr.cy, 5.0)
+            im.radius.contiguous(), im.index >= 0,
+            kernels.intrinsics(intr, device), 5.0)
 
 
 def synthetic_edge_args(device, h: int = 120, w: int = 160):
@@ -558,7 +559,8 @@ def check_scan(args, z, s, zp, sp, window: int = 2,
     `max_flips` (inclusive).  The hit is recomputed here in float64."""
     import torch
 
-    pos, normal, radius, live, fx, fy, cx, cy, max_depth = args
+    pos, normal, radius, live, intr, max_depth = args
+    fx, fy, cx, cy = intr.tolist()
     H, W = radius.shape
     both_inf = torch.isinf(z) & torch.isinf(zp)
     differ = ~((z - zp).abs() <= 1e-5) & ~both_inf
@@ -762,8 +764,8 @@ def phase_kernels(dev, kernels, MaskFusion, Config, Resolution,
         st.map, se3.pose_inverse(st.pose), intr, H, W, 1.0,
         eng.cfg.effective_time_delta(), eng.cfg.depth_cutoff)
     args = (im.pos.contiguous(), im.normal.contiguous(),
-            im.radius.contiguous(), im.index >= 0, intr.fx, intr.fy, intr.cx,
-            intr.cy, eng.cfg.depth_cutoff)
+            im.radius.contiguous(), im.index >= 0,
+            kernels.intrinsics(intr, dev), eng.cfg.depth_cutoff)
     rec = scan_record(kernels, args, "global")
     small = synthetic_scan_args(dev)
     small_agree = check_scan(small, *kernels.predict_l0_scan(*small),
@@ -1182,8 +1184,9 @@ def phase_multiobject(dev, kernels, MaskFusion, Config, Resolution,
                                  "texel")
         scans.append(scan_record(
             kernels, (im.pos.contiguous(), im.normal.contiguous(),
-                      im.radius.contiguous(), im.index >= 0, k.fx, k.fy,
-                      k.cx, k.cy, cfg.depth_cutoff), which))
+                      im.radius.contiguous(), im.index >= 0,
+                      kernels.intrinsics(k, st.pose.device),
+                      cfg.depth_cutoff), which))
     del st, im
     # the two profiler views first, while the main path's models are live
     # (bench.py's scene spawns a fourth model near frame 31), then the

@@ -98,12 +98,22 @@ The synchronous frame tracks on the engine's device (its fuse splits).
 The JAX package jits each stage, donates the map buffers and prewarms its
 compile cache (`prewarm_next_buckets`, `_note_prewarm`).  PyTorch runs
 eagerly: the map's buffers are updated in place instead of donated, and
-nothing is compiled ahead.  On a card the tracking solves alone (`track`,
-`track_objects`, `track_objects_win`: the model pyramids and the
-Gauss-Newton solve) replay CUDA graphs (tracking/graphs), one for each
-shape of their inputs, captured the first time it is met
-(`track_graph_captures`, `track_graph_replays`; the counter
-``track_graph`` in the span log); on the CPU they run eagerly.
+nothing is compiled ahead.  On a card two chains replay CUDA graphs
+(tracking/graphs), one for each shape of their inputs, captured the first
+time it is met: the tracking solves (`track`, `track_objects`,
+`track_objects_win`: the model pyramids and the Gauss-Newton solve;
+`track_graph_captures`, `track_graph_replays`, the counter
+``track_graph`` in the span log) and each model's fuse, clean and predict
+(`_fuse`: from the bucket's prefix through the quarter-resolution render
+and `combined_predict` to the new predictions, the global model's fill-in
+and the gate's selections; `fuse_graph_captures`, `fuse_graph_replays`,
+the counter ``fuse_graph``).  The frame values a fuse reads (the time, the
+mask id, the thresholds, a window's principal point) enter its graph as
+device values filled on each replay; the map prefix is copied into the
+graph's buffers and the cleaned prefix back, so the object slots of one
+bucket share one graph.  A window's crops of the frame and the paste of
+its prediction, whose offsets are host numbers, stay eager.  On the CPU
+everything runs eagerly.
 
 Pose conventions (as the reference): every model's `pose` is the camera
 pose in that model's frame; model 0's is camera->world, and an object's
@@ -115,6 +125,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import time as _time
 from typing import Callable, Dict, List, NamedTuple, Optional
 
@@ -130,6 +141,7 @@ from maskfusion_tpu_torch.mapping import surfel_map as sm
 from maskfusion_tpu_torch.ops import clean as clean_ops
 from maskfusion_tpu_torch.ops import fill_in as fill_ops
 from maskfusion_tpu_torch.ops import fuse as fuse_ops
+from maskfusion_tpu_torch.ops import kernels
 from maskfusion_tpu_torch.ops import preprocess as pp
 from maskfusion_tpu_torch.ops import reduce as red
 from maskfusion_tpu_torch.ops import splat as splat_ops
@@ -397,6 +409,12 @@ class MaskFusion:
         self._track_graphs = graphs.SolveGraphs()
         self.track_graph_replays = 0
         self.track_graph_captures = 0
+        # each model's fuse, clean and predict as CUDA graphs, in the
+        # tracks' memory pool (one a card); the graphed calls and those
+        # that captured a graph
+        self._fuse_graphs = graphs.SolveGraphs(share=self._track_graphs)
+        self.fuse_graph_replays = 0
+        self.fuse_graph_captures = 0
         # the bilateral's metric footprint stays constant across
         # resolutions: pixel radius and spatial sigma scale with width
         bl_scale = W / 640.0
@@ -666,35 +684,42 @@ class MaskFusion:
             pred_rgb=filled.rgb,
             so3_intensity=prep.frame_pyr.intensities[-1])
 
-    def _fuse_core(self, state: MapState, vmap_raw, vmap0, nmap0, filt, rgb,
-                   seg_mask, time: float, mask_id: int,
-                   conf_threshold: float, max_depth: float,
-                   weight_multiplier: float, bucket: int,
-                   parity: Optional[int], compact: bool,
-                   intr: CameraIntrinsics,
-                   gate: Optional[torch.Tensor] = None):
-        """Render, fuse, patch the index map, clean and predict one model
-        on an image of the inputs' size seen through `intr`: the full frame,
-        or an object's window with its shifted principal point.  Updates
-        state.map's tensors in place (prefix write-back) and returns the
-        map, the unfilled prediction, the removed and appended counts and
-        the inverse pose.  `gate`, a device bool (the prefused schedule's
-        tracking-ok), selects the cleaned prefix against the one that went
-        in BEFORE the write-back (fuse and clean leave `work` untouched;
-        the write-back is what overwrites it), and zeroes the counts where
-        it is false; the caller selects the predictions."""
+    def _fuse_unit(self, parity: Optional[int], compact: bool,
+                   fill_in: bool, pos, conf, color, init_time, last_seen,
+                   normal, radius, count, pose, last_delta, prev_pose,
+                   vmap_raw, vmap0, nmap0, filt, rgb, seg_mask, ids_guard,
+                   gate, old_vmap, old_nmap, old_rgb, time, mask_id,
+                   conf_threshold, max_depth, weight_multiplier, cx, cy):
+        """Render, fuse, patch the index map, clean and predict one model:
+        the unit that `_fuse` runs eagerly or replays as a CUDA graph.  The
+        map prefix comes as its fields; the images (vmap_raw ... seg_mask)
+        are the full frame, or an object's window seen through its shifted
+        principal point (cx, cy).  The frame values (time ... cy) are host
+        numbers or, in a graph, 0-d device tensors filled on each replay.
+        `ids_guard`, the prefused schedule's id projection, first sets 255
+        (semantic-ignore) where the lagging segmentation and the projection
+        both claim a model and not the same one.  `gate`, a device bool
+        (the prefused schedule's tracking-ok), selects the cleaned prefix
+        against the one that came in and zeroes the counts where it is
+        false, and selects the predictions against (old_vmap, old_nmap,
+        old_rgb) where those are given.  Returns the cleaned prefix (not
+        yet written back), the predictions (filled in with `fill_in`), the
+        removed and appended counts and the new last_delta."""
         cfg = self.cfg
         H, W = filt.shape
+        intr = CameraIntrinsics(self.intr.fx, self.intr.fy, cx, cy)
+        if ids_guard is not None:
+            seg_mask = torch.where((seg_mask == ids_guard) | (ids_guard == 0),
+                                   seg_mask, 255).to(torch.uint8)
         time_delta = cfg.effective_time_delta()
-        pose = state.pose
         pose_inv = se3.pose_inverse(pose)
         if cfg.velocity_fusion_weight:
-            weighting = fuse_ops.compute_fusion_weight(state.last_delta,
+            weighting = fuse_ops.compute_fusion_weight(last_delta,
                                                        weight_multiplier)
         else:
             weighting = weight_multiplier
-        full_map = state.map
-        work = sm.prefix_view(full_map, bucket)
+        work = sm.SurfelMap(pos, conf, color, init_time, last_seen, normal,
+                            radius, count)
         # the render uses the GLOBAL depth cutoff; the per-model max depth
         # gates only which pixels may fuse (MaskFusion.cpp:527, 541)
         im1 = splat_ops.render_index_map(work, pose_inv, intr, H, W, time,
@@ -725,11 +750,12 @@ class MaskFusion:
         removed = cres.removed
         cres_map = cres.map
         if gate is not None:
+            # fuse and clean leave `work` untouched: it is the prefix that
+            # went in
             cres_map = sm.SurfelMap(*(torch.where(gate, a, b)
                                       for a, b in zip(cres.map, work)))
             removed = torch.where(gate, removed, 0)
             appended = torch.where(gate, appended, 0)
-        final_map = sm.write_back(full_map, cres_map)
         # prediction reuses the post-fuse index map gated by clean's keep
         idx = im2.index
         keep_img = torch.where(idx >= 0, cres.keep[idx.clamp(min=0).long()],
@@ -741,7 +767,99 @@ class MaskFusion:
             time_delta, cfg.depth_cutoff)
         pred = splat_ops.combined_predict(im2_gated, intr, cfg.depth_cutoff,
                                           coarse=(im_coarse, 2))
-        return final_map, pred, removed, appended, pose_inv
+        if fill_in:
+            filled = fill_ops.fill_in(pred, rgb, vmap0, nmap0)
+            preds = (filled.vmap, filled.nmap, filled.rgb)
+            if cfg.frame_to_frame_rgb:
+                preds = preds[:2] + (rgb.to(torch.float32),)
+        else:
+            preds = (pred.vmap, pred.nmap, pred.rgb)
+        if old_vmap is not None:
+            preds = tuple(torch.where(gate, a, b) for a, b in zip(
+                preds, (old_vmap, old_nmap, old_rgb)))
+        return cres_map, preds, removed, appended, pose_inv @ prev_pose
+
+    def _fuse(self, path: str, state: MapState, bucket: int, prev_pose,
+              images: tuple, ids_guard, gate, old_preds: tuple, time,
+              mask_id, conf_threshold, max_depth, weight_multiplier, cx, cy,
+              parity: Optional[int], compact: bool, fill_in: bool):
+        """One model's fuse, clean and predict (`_fuse_unit`) on its bucket
+        of state.map.  Updates the map's tensors in place (the prefix
+        write-back) and returns (the map, the predictions, the removed and
+        appended counts, the new last_delta).  On a card, where the bucket
+        is a prefix of the map, the replay of the unit's CUDA graph
+        (`_fuse_graphed`); on the CPU, or where the bucket is the whole map
+        (whose tensors are never copied whole), eagerly."""
+        full = state.map
+        work = sm.prefix_view(full, bucket)
+        inputs = (*work[:7], work.count, state.pose, state.last_delta,
+                  prev_pose, *images, ids_guard, gate, *old_preds,
+                  float(time), int(mask_id), float(conf_threshold),
+                  float(max_depth), float(weight_multiplier), float(cx),
+                  float(cy))
+        unit = functools.partial(self._fuse_unit, parity, compact, fill_in)
+        if not self._replays(full, bucket):
+            cres, preds, removed, appended, last_delta = unit(*inputs)
+            return (sm.write_back(full, cres), preds, removed, appended,
+                    last_delta)
+
+        def fn(*args):
+            cres, preds, removed, appended, last_delta = unit(*args)
+            for dst, src in zip(args, cres[:7]):      # the write-back
+                dst.copy_(src)
+            return (cres.count, *preds, removed, appended, last_delta)
+
+        new_count, pv, pn, pc, removed, appended, last_delta = \
+            self._fuse_graphed(path, (parity, compact, fill_in), fn, inputs)
+        return (full._replace(count=new_count), (pv, pn, pc), removed,
+                appended, last_delta)
+
+    @staticmethod
+    def _replays(m: sm.SurfelMap, bucket: int) -> bool:
+        """Whether a fuse over `bucket` of map `m` replays a CUDA graph: on
+        a card, where the bucket is a prefix of the map."""
+        return m.pos.device.type == "cuda" and bucket < m.capacity
+
+    def _fuse_graphed(self, path: str, static: tuple, fn, inputs: tuple):
+        """`fn(*inputs)`, a model's fuse on a card, as the replay of its
+        CUDA graph (tracking/graphs), captured at the first call of its
+        key (`_fuse_graph_key`); `fn` writes the cleaned prefix into the
+        map prefix's fields (inputs 0-6), and so does the call.  Counts the
+        calls (`fuse_graph_replays`) and the captures, and records each
+        call as the counter ``fuse_graph`` (`captured`, `path`, `slots`:
+        the models the replay fuses) while a profiler runs."""
+        dev = inputs[0].device
+        H, W = inputs[14].shape          # the filtered depth
+
+        def keep():
+            # the scan's live-tap weights, cached by the kernels' module
+            return kernels.scan_constants(H, W, dev)
+
+        with _on_device(dev):
+            out, captured = self._fuse_graphs.run(
+                self._fuse_graph_key(static, inputs), fn, inputs, keep,
+                inout=range(7))
+        self.fuse_graph_replays += 1
+        self.fuse_graph_captures += int(captured)
+        count("fuse_graph", captured=int(captured), path=path, slots=1)
+        return out
+
+    def _fuse_graph_key(self, static: tuple, inputs: tuple) -> tuple:
+        """The key of a fuse graph: what it bakes in (the parity, the
+        compaction, the fill-in, the intrinsics, every option of the
+        passes) and its inputs' signatures: the bucket by the prefix's
+        shapes, the frame or window size, whether a gate, an id guard and
+        the predictions to gate against are there; a frame value (the
+        time, the mask id, the thresholds, the principal point) by its
+        type alone: it enters the graph as a device value."""
+        cfg = self.cfg
+        return graphs.graph_key(
+            ("fuse",) + static + (
+                self.intr, cfg.effective_time_delta(), cfg.depth_cutoff,
+                cfg.fuse_subsample_checkerboard, cfg.surfel_merge_z_thresh,
+                cfg.incremental_im2, cfg.velocity_fusion_weight,
+                cfg.outlier_coefficient, cfg.unstable_time_limit,
+                cfg.frame_to_frame_rgb), inputs)
 
     def fuse_clean_predict(self, state: MapState, prep: Preprocessed, rgb,
                            seg_mask, prev_pose, time: float, mask_id: int,
@@ -749,27 +867,25 @@ class MaskFusion:
                            weight_multiplier: float, allow_fill_in: bool,
                            bucket: int, parity: Optional[int] = None,
                            compact: bool = True,
-                           gate: Optional[torch.Tensor] = None):
+                           gate: Optional[torch.Tensor] = None,
+                           ids_guard: Optional[torch.Tensor] = None):
         """engine.py:472-598 of the JAX package.  Updates state.map's
         tensors in place (prefix write-back).  Where the device bool `gate`
         is false, the map, the predictions and the counts stay as they came
-        in (last_delta is not gated, as in the JAX package)."""
-        cfg = self.cfg
+        in (last_delta is not gated, as in the JAX package).  `ids_guard`
+        as in fuse_stage."""
         lv0 = prep.levels[0]
-        final_map, pred, removed, appended, pose_inv = self._fuse_core(
-            state, prep.vmap_raw, lv0["vmap"], lv0["nmap"], prep.filt_depth,
-            rgb, seg_mask, time, mask_id, conf_threshold, max_depth,
-            weight_multiplier, bucket, parity, compact, self.intr, gate)
-        if allow_fill_in:
-            filled = fill_ops.fill_in(pred, rgb, lv0["vmap"], lv0["nmap"])
-            pv, pn, pc = filled.vmap, filled.nmap, filled.rgb
-            if cfg.frame_to_frame_rgb:
-                pc = rgb.to(torch.float32)
-        else:
-            pv, pn, pc = pred.vmap, pred.nmap, pred.rgb
-        pv, pn, pc = _gated(gate, (pv, pn, pc), state)
+        old = ((state.pred_vmap, state.pred_nmap, state.pred_rgb)
+               if gate is not None else (None,) * 3)
+        final_map, (pv, pn, pc), removed, appended, last_delta = self._fuse(
+            "global" if allow_fill_in else "object", state, bucket,
+            prev_pose, (prep.vmap_raw, lv0["vmap"], lv0["nmap"],
+                        prep.filt_depth, rgb, seg_mask),
+            ids_guard, gate, old, time, mask_id, conf_threshold, max_depth,
+            weight_multiplier, self.intr.cx, self.intr.cy, parity, compact,
+            allow_fill_in)
         new_state = MapState(
-            map=final_map, pose=state.pose, last_delta=pose_inv @ prev_pose,
+            map=final_map, pose=state.pose, last_delta=last_delta,
             pred_vmap=pv, pred_nmap=pn, pred_rgb=pc,
             so3_intensity=prep.frame_pyr.intensities[-1])
         return new_state, removed, appended
@@ -788,34 +904,37 @@ class MaskFusion:
                                    max_depth: float, weight_multiplier: float,
                                    oy: int, ox: int, bucket: int,
                                    parity: Optional[int],
-                                   gate: Optional[torch.Tensor] = None
+                                   gate: Optional[torch.Tensor] = None,
+                                   ids_guard: Optional[torch.Tensor] = None
                                    ) -> MapState:
         """An object's fuse + clean + predict on its (OW, OW) window at
         (oy, ox) (engine.py:678-775 of the JAX package): every image-side
         pass runs on the crop with the shifted principal point; the window
         holds the object's mask and margin, so everything inside it sees
         the full-frame pass's pixels.  The prediction is pasted into a NaN
-        canvas (zeros for rgb); objects never fill in.  `gate` as in
-        fuse_clean_predict."""
+        canvas (zeros for rgb); objects never fill in.  `gate` and
+        `ids_guard` as in fuse_clean_predict.  The crops and the paste,
+        whose offsets are host numbers, run eagerly around the unit."""
         H, W = self.res.height, self.res.width
         OW = self._obj_window
         win = (slice(oy, oy + OW), slice(ox, ox + OW))
         lv0 = prep.levels[0]
-        final_map, pred, _removed, _appended, pose_inv = self._fuse_core(
-            state, prep.vmap_raw[win], lv0["vmap"][win], lv0["nmap"][win],
-            prep.filt_depth[win], rgb[win], seg_mask[win], time, mask_id,
-            conf_threshold, max_depth, weight_multiplier, bucket, parity,
-            True, self._intr_shift(oy, ox), gate)
+        shifted = self._intr_shift(oy, ox)
+        final_map, pred, _removed, _appended, last_delta = self._fuse(
+            "window", state, bucket, prev_pose,
+            (prep.vmap_raw[win], lv0["vmap"][win], lv0["nmap"][win],
+             prep.filt_depth[win], rgb[win], seg_mask[win]),
+            None if ids_guard is None else ids_guard[win], gate,
+            (None,) * 3, time, mask_id, conf_threshold, max_depth,
+            weight_multiplier, shifted.cx, shifted.cy, parity, True, False)
         dev = state.pose.device
         pv = torch.full((H, W, 3), float("nan"), device=dev)
         pn = torch.full((H, W, 3), float("nan"), device=dev)
         pc = torch.zeros((H, W, 3), device=dev)
-        pv[win] = pred.vmap
-        pn[win] = pred.nmap
-        pc[win] = pred.rgb
+        pv[win], pn[win], pc[win] = pred
         pv, pn, pc = _gated(gate, (pv, pn, pc), state)
         return MapState(
-            map=final_map, pose=state.pose, last_delta=pose_inv @ prev_pose,
+            map=final_map, pose=state.pose, last_delta=last_delta,
             pred_vmap=pv, pred_nmap=pn, pred_rgb=pc,
             so3_intensity=prep.frame_pyr.intensities[-1])
 
@@ -840,20 +959,18 @@ class MaskFusion:
         (semantic-ignore: no model fuses it, no clean penalty fires); where
         the projection shows nothing the segmentation's label stays, so
         disocclusions fuse into the global map and a newborn object can
-        bootstrap.  With a models mesh each block of the plan over the
-        slots fuses its live slots on its device, from one copy a frame of
-        the inputs there (engine.py:1010-1012 of the JAX package); the
-        global model stays on the engine's device.  Returns (global state,
-        object states)."""
-        if ids_guard is not None:
-            seg_mask = torch.where((seg_mask == ids_guard) | (ids_guard == 0),
-                                   seg_mask, 255).to(torch.uint8)
+        bootstrap.  On a card each model's pass replays a CUDA graph
+        (`_fuse`); slots of one bucket share one.  With a models mesh each
+        block of the plan over the slots fuses its live slots on its
+        device, from one copy a frame of the inputs there (engine.py:
+        1010-1012 of the JAX package); the global model stays on the
+        engine's device.  Returns (global state, object states)."""
         with span("fuse_global"):
             new_glob, _removed, _app = self.fuse_clean_predict(
                 glob_state, prep, rgb, seg_mask, prev_poses[0], time, 0,
                 self.cfg.conf_threshold_global, self.cfg.depth_cutoff,
                 self.cfg.weight_multiplier, True, glob_bucket, parity, True,
-                gate)
+                gate, ids_guard)
         new_objs = list(obj_states)
         for dev, a, b in self._slot_blocks(len(obj_states)):
             live = [k for k in range(a, b)
@@ -862,19 +979,20 @@ class MaskFusion:
                 continue
             with _on_device(dev), span("fuse_objects"):
                 prep_d = self._frame_on(prep, dev)
-                rgb_d, seg_d, prev_d, gate_d = _moved(
-                    (rgb, seg_mask, prev_poses, gate), dev)
+                rgb_d, seg_d, prev_d, gate_d, guard_d = _moved(
+                    (rgb, seg_mask, prev_poses, gate, ids_guard), dev)
                 for k in live:
                     new_objs[k] = self._fuse_slot(
                         self._state_on(obj_states[k], dev), prep_d, rgb_d,
                         seg_d, prev_d[k + 1], time, obj_params[k],
-                        obj_bucket, parity, windowed, gate_d)
+                        obj_bucket, parity, windowed, gate_d, guard_d)
         return new_glob, tuple(new_objs)
 
     def _fuse_slot(self, state: MapState, prep: Preprocessed, rgb, seg_mask,
                    prev_pose, time: float, row, obj_bucket: int,
                    parity: Optional[int], windowed: bool,
-                   gate: Optional[torch.Tensor]) -> MapState:
+                   gate: Optional[torch.Tensor],
+                   ids_guard: Optional[torch.Tensor]) -> MapState:
         """One live object slot's fuse + clean + predict: in its window
         when `windowed`, else on the full frame without fill-in; `row` its
         host [mask_id, conf_t, max_depth, weight_mult, oy, ox]."""
@@ -883,10 +1001,10 @@ class MaskFusion:
             return self.fuse_clean_predict_obj_win(
                 state, prep, rgb, seg_mask, prev_pose, time, int(mid),
                 conf_t, max_d, wm, int(oy), int(ox), obj_bucket, parity,
-                gate)
+                gate, ids_guard)
         return self.fuse_clean_predict(
             state, prep, rgb, seg_mask, prev_pose, time, int(mid), conf_t,
-            max_d, wm, False, obj_bucket, parity, True, gate)[0]
+            max_d, wm, False, obj_bucket, parity, True, gate, ids_guard)[0]
 
     # ------------------------------------------------- the models mesh
     def _shard_model_axis(self, n: int):

@@ -58,6 +58,20 @@ def empty(capacity: int, device) -> SurfelMap:
                      count=torch.zeros((), dtype=torch.int32, device=device))
 
 
+def host_or_device(x):
+    """A frame value (the time, a threshold) as the passes take it: a host
+    number as a float; a 0-d device tensor, a graphed pass's (filled on
+    each replay, tracking/graphs), as it is."""
+    return x if isinstance(x, torch.Tensor) else float(x)
+
+
+def stamp(n: int, x, device) -> torch.Tensor:
+    """(n,) float32 filled with the frame value `x` (`host_or_device`)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).expand(n)
+    return torch.full((n,), float(x), device=device)
+
+
 def radius_from_depth(z: torch.Tensor, norm_z: torch.Tensor,
                       intr: CameraIntrinsics) -> torch.Tensor:
     """Surfel radius (surfels.glsl getRadius:19-34): sqrt2 * z / meanFocal,
@@ -95,9 +109,9 @@ def init_from_frame(capacity: int, vmap_raw, vmap_filt, nmap_filt, rgb,
     rad = radius_from_depth(vmap_filt[..., 2].reshape(-1),
                             nmap_filt[..., 2].reshape(-1), intr)
     col = rgb.reshape(-1, 3).to(torch.float32)
-    stamp = torch.full((H * W,), float(time), device=dev)
-    return compact_into(empty(capacity, dev), valid, pos_w, conf, col, stamp,
-                        stamp, norm_w, rad)
+    t = stamp(H * W, time, dev)
+    return compact_into(empty(capacity, dev), valid, pos_w, conf, col, t, t,
+                        norm_w, rad)
 
 
 def compact_into(m: SurfelMap, keep: torch.Tensor, pos, conf, color,

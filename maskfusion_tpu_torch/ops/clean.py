@@ -39,6 +39,9 @@ def clean(m: SurfelMap, index_map: IndexMap, depth_input, mask, mask_id,
           conf_threshold, max_depth, outlier_coeff, *,
           unstable_time_limit: float = 20.0,
           compact: bool = True) -> CleanResult:
+    """`time`, `mask_id`, `conf_threshold` and the principal point may be
+    host numbers or 0-d device tensors (a graphed pass's,
+    tracking/graphs)."""
     H, W = depth_input.shape
     R = pose_inv[:3, :3]
     lp = m.pos @ R.T + pose_inv[:3, 3]                    # local position
@@ -49,7 +52,7 @@ def clean(m: SurfelMap, index_map: IndexMap, depth_input, mask, mask_id,
     safe_z = torch.where(lz != 0, lz, 1.0)
     x = intr.fx * lp[:, 0] / safe_z + intr.cx
     y = intr.fy * lp[:, 1] / safe_z + intr.cy
-    time = float(time)
+    time = sm.host_or_device(time)
     in_view = (((time - m.last_seen) < time_delta) & (lz > 0) & (x > 0)
                & (y > 0) & (x < W) & (y < H))
 
@@ -102,13 +105,17 @@ def clean(m: SurfelMap, index_map: IndexMap, depth_input, mask, mask_id,
     centre = ky.clamp(0, H - 1) * W + kx.clamp(0, W - 1)
     w_depth = depth_input.reshape(-1)[centre]
     mask_val = mask.reshape(-1)[centre].to(torch.int32)
-    mask_id_i = int(mask_id)
     depth_close = (w_depth > lz - 0.05) & (w_depth < lz + 0.05)
+    soft = 0.5 + 0.5 * (1.0 - outlier_coeff / 10.0)
+    if isinstance(mask_id, torch.Tensor):     # a graphed pass's
+        mask_id_i = mask_id.to(torch.int32)
+        other = torch.where(mask_id_i == 0, 0.25 * soft, soft)
+    else:
+        mask_id_i = int(mask_id)
+        other = 0.25 * soft if mask_id_i == 0 else soft
     disagree = in_view & (mask_val != mask_id_i) & (mask_val < 255) & \
         depth_close
-    soft = 0.5 + 0.5 * (1.0 - outlier_coeff / 10.0)
-    penalty = torch.where(mask_val == 0, soft,
-                          0.25 * soft if mask_id_i == 0 else soft)
+    penalty = torch.where(mask_val == 0, soft, other)
     conf = torch.where(disagree, m.conf * penalty, m.conf)
 
     keep = keep & m.slot_mask() & torch.isfinite(m.pos).all(-1)

@@ -70,7 +70,9 @@ def fuse(m: SurfelMap, index_map: IndexMap, vmap_raw, vmap_filt, nmap_filt,
     """One fusion step: merged surfels updated, unmatched pixels appended as
     unstables with last_seen = -2 (finalised by clean).  `parity` is the
     frame's checkerboard parity (tick % 2) when known on the host; None
-    derives it from `time` on the device."""
+    derives it from `time` on the device.  `time`, `mask_id`, `max_depth`,
+    `weighting` and the principal point may be host numbers or 0-d device
+    tensors (a graphed pass's, tracking/graphs)."""
     H, W = vmap_raw.shape[:2]
     dev = vmap_raw.device
     if m.capacity >= (1 << 24):
@@ -89,7 +91,8 @@ def fuse(m: SurfelMap, index_map: IndexMap, vmap_raw, vmap_filt, nmap_filt,
               & (pp.shift(z_raw, 1, 0, 0.0) > 0))
     eligible = valid_v & nbr_ok & (mask == mask_id)
     if checkerboard and parity is None:
-        tpar = int(time) % 2
+        tpar = (time.to(torch.int32) if isinstance(time, torch.Tensor)
+                else int(time)) % 2
         eligible = eligible & (u.to(torch.int32) % 2 == tpar) & (
             v.to(torch.int32) % 2 == tpar)
 
@@ -172,7 +175,8 @@ def fuse(m: SurfelMap, index_map: IndexMap, vmap_raw, vmap_filt, nmap_filt,
         # a copy: compact_into below appends into these tensors in place,
         # and m's may be views of the engine's full map
         init_time=m.init_time.clone(),
-        last_seen=torch.where(has_update, float(time), m.last_seen),
+        last_seen=torch.where(has_update, sm.host_or_device(time),
+                              m.last_seen),
         normal=merged_norm,
         radius=torch.where(
             geom_ok, (m.radius * c_k + new_rad_meas * sum_a) * inv_tot,
@@ -185,7 +189,7 @@ def fuse(m: SurfelMap, index_map: IndexMap, vmap_raw, vmap_filt, nmap_filt,
     n_cand = cand_new.shape[0]
     updated = sm.compact_into(
         updated, cand_new, rows(pos_w), rows(conf_px), rows(col),
-        torch.full((n_cand,), float(time), device=dev),
+        sm.stamp(n_cand, time, dev),
         torch.full((n_cand,), -2.0, device=dev),
         rows(norm_w), rows(rad_px))
     if checkerboard and parity is not None:

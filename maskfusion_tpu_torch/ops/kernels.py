@@ -20,7 +20,9 @@ Each source note says what bounds the kernel on the card and what its design
 does about it.  Each public wrapper launches its CUDA kernel for a CUDA
 tensor and takes its plain version only for a tensor on the CPU (the tests'
 path); for a CUDA tensor it launches or raises.  Each wrapper counts its
-launches in a plain integer attribute, ``<wrapper>.launches``.
+launches in a plain integer attribute, ``<wrapper>.launches``: one a call,
+and one a replay of a CUDA graph that captured the call (a graph's eager
+warm-up run is not counted; utils/stopwatch).
 
 The sources are compiled with nvcc into one shared library with a plain C
 interface, loaded with ctypes: one ``nvcc -c`` per source, all started
@@ -47,6 +49,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from maskfusion_tpu_torch.utils import stopwatch
 from maskfusion_tpu_torch.utils.stopwatch import count, recording
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -132,7 +135,7 @@ def load_library() -> ctypes.CDLL:
         lib.mft_bilateral_depth.argtypes = [P, P, I, I, I, F, F, F, P]
         lib.mft_bilateral_depth.restype = I
         for fn in (lib.mft_predict_l0_scan, lib.mft_predict_l0_scan_exact):
-            fn.argtypes = [P, P, P, P, P, P, I, I, I, F, F, F, F, F, P]
+            fn.argtypes = [P, P, P, P, P, P, I, I, I, P, F, P]
             fn.restype = I
         lib.mft_geometric_edge_map.argtypes = [P, P, P, I, I, F, F, P]
         lib.mft_geometric_edge_map.restype = I
@@ -219,6 +222,14 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
 
+def _launched(wrapper) -> None:
+    """Counts one launch of `wrapper`'s kernel (``stopwatch.replayed``:
+    at each replay of a graph that captures it)."""
+    def bump():
+        wrapper.launches += 1
+    stopwatch.replayed(bump)
+
+
 def reset_launch_counts() -> None:
     bilateral_depth.launches = 0
     predict_l0_scan.launches = 0
@@ -284,7 +295,7 @@ def bilateral_depth(depth: torch.Tensor, radius: int = 6,
         float(sigma_space2_inv_half), float(sigma_color2_inv_half),
         float(min_valid_depth), _stream(depth))
     _raise_on(err, "bilateral_depth")
-    bilateral_depth.launches += 1
+    _launched(bilateral_depth)
     return out
 
 
@@ -292,13 +303,14 @@ def bilateral_depth(depth: torch.Tensor, radius: int = 6,
 # kernel 2: level-0 ray-disk winner scan of combined_predict
 # ---------------------------------------------------------------------------
 
-def predict_l0_scan_plain(pos, normal, radius, live, fx, fy, cx, cy,
+def predict_l0_scan_plain(pos, normal, radius, live, intr: torch.Tensor,
                           max_depth, window: int = 2
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: the shifted-pad tap loop of
-    maskfusion_tpu/ops/splat.py:304-342."""
+    maskfusion_tpu/ops/splat.py:304-342; `intr` as the kernel's."""
     H, W = radius.shape
     dev = radius.device
+    fx, fy, cx, cy = intr.unbind()
     u = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
     v = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
     lx = (u - cx) / fx
@@ -351,36 +363,75 @@ def _live_weights(H: int, W: int, window: int, device: torch.device
     return w.to(device, non_blocking=True)
 
 
+def scan_constants(H: int, W: int, device, window: int = 2) -> tuple:
+    """What a CUDA graph that captured the scan of an (H, W) map reads
+    besides its inputs, cached here: the live-tap weights of its
+    ``scan_live`` counts.  The graph holds them alive."""
+    return (_live_weights(H, W, int(window), torch.device(device)),)
+
+
+@functools.lru_cache(maxsize=64)
+def _host_intrinsics(fx: float, fy: float, cx: float, cy: float,
+                     device: torch.device) -> torch.Tensor:
+    """(4,) float32 [fx, fy, cx, cy] on `device`, sent without waiting."""
+    t = torch.tensor([fx, fy, cx, cy], dtype=torch.float32)
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def intrinsics(intr, device) -> torch.Tensor:
+    """The scan's (4,) float32 intrinsics [fx, fy, cx, cy] on `device`.
+    A field may be a 0-d device tensor (a graphed pass's principal point,
+    filled on each replay): the buffer is then stacked on the device;
+    host numbers give one cached upload."""
+    fields = (intr.fx, intr.fy, intr.cx, intr.cy)
+    if not any(isinstance(v, torch.Tensor) for v in fields):
+        return _host_intrinsics(*map(float, fields), torch.device(device))
+    return torch.stack([
+        v.to(torch.float32) if isinstance(v, torch.Tensor)
+        else torch.full((), v, dtype=torch.float32, device=device)
+        for v in fields])
+
+
 def predict_l0_scan(pos: torch.Tensor, normal: torch.Tensor,
                     radius: torch.Tensor, live: torch.Tensor,
-                    fx: float, fy: float, cx: float, cy: float,
-                    max_depth: float, window: int = 2,
+                    intr: torch.Tensor, max_depth: float, window: int = 2,
                     exact_division: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Nearest ray-disk hit per pixel over the +-window index-map taps.
-    Returns best_z (H, W) f32 (+inf: none) and best_src (H, W) int32, the
-    winning tap's y*W + x (-1: none).  CUDA kernel csrc/predict_l0_scan.cu;
-    `exact_division` divides every tap with __fdiv_rn in place of its fast
-    division (the check that both give the same results).
+    """Nearest ray-disk hit per pixel over the +-window index-map taps,
+    for the camera of `intr`, a (4,) float32 [fx, fy, cx, cy] on the maps'
+    device (`intrinsics`), which the kernel reads from the device: a
+    window's principal point moves every frame, and a CUDA graph replays
+    the launch with what the buffer holds.  Returns best_z (H, W) f32
+    (+inf: none) and best_src (H, W) int32, the winning tap's y*W + x (-1:
+    none).  CUDA kernel csrc/predict_l0_scan.cu; `exact_division` divides
+    every tap with __fdiv_rn in place of its fast division (the check that
+    both give the same results).
 
     While a profiler runs, each call records the counter `scan_live` (the
     work these inputs need, for the kernel's roofline): H, W, `window`,
     `live` the live texels and `live_taps` the live texels over every
-    pixel's +-window box, both device tensors read after the run."""
-    if recording():
+    pixel's +-window box, both device tensors read after the run.  A graph
+    captures the counts with the scan, and each replay records them."""
+    if recording() or stopwatch.in_graph_capture():
         H, W = live.shape
         # two launches: the product and one reduction giving both sums
         n = (live * _live_weights(H, W, int(window), live.device)).sum((1, 2))
         count("scan_live", H=H, W=W, window=int(window), live=n[0],
               live_taps=n[1])
     if radius.device.type == "cpu":
-        return predict_l0_scan_plain(pos, normal, radius, live, fx, fy, cx,
-                                     cy, max_depth, window)
+        return predict_l0_scan_plain(pos, normal, radius, live, intr,
+                                     max_depth, window)
     H, W = radius.shape
     _check(pos, "pos", torch.float32, (H, W, 3))
     _check(normal, "normal", torch.float32, (H, W, 3))
     _check(radius, "radius", torch.float32, (H, W))
     _check(live, "live", torch.bool, (H, W))
+    _check(intr, "intr", torch.float32, (4,))
+    if intr.device != radius.device:
+        raise ValueError(f"intr: expected a tensor on {radius.device}, "
+                         f"got {intr.device}")
     best_z = torch.empty((H, W), dtype=torch.float32, device=radius.device)
     best_src = torch.empty((H, W), dtype=torch.int32, device=radius.device)
     lib = load_library()
@@ -389,10 +440,9 @@ def predict_l0_scan(pos: torch.Tensor, normal: torch.Tensor,
     err = launch(
         pos.data_ptr(), normal.data_ptr(), radius.data_ptr(),
         live.data_ptr(), best_z.data_ptr(), best_src.data_ptr(), H, W,
-        int(window), float(fx), float(fy), float(cx), float(cy),
-        float(max_depth), _stream(radius))
+        int(window), intr.data_ptr(), float(max_depth), _stream(radius))
     _raise_on(err, "predict_l0_scan")
-    predict_l0_scan.launches += 1
+    _launched(predict_l0_scan)
     return best_z, best_src
 
 
@@ -457,7 +507,7 @@ def geometric_edge_map(vmap: torch.Tensor, nmap: torch.Tensor,
         vmap.data_ptr(), nmap.data_ptr(), out.data_ptr(), H, W,
         float(weight_distance), float(weight_concavity), _stream(vmap))
     _raise_on(err, "geometric_edge_map")
-    geometric_edge_map.launches += 1
+    _launched(geometric_edge_map)
     return out
 
 

@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from maskfusion_tpu_torch.camera import CameraIntrinsics
-from maskfusion_tpu_torch.mapping.surfel_map import SurfelMap
+from maskfusion_tpu_torch.mapping.surfel_map import SurfelMap, host_or_device
 from maskfusion_tpu_torch.ops import kernels
 from maskfusion_tpu_torch.ops import preprocess as pp
 from maskfusion_tpu_torch.ops import sort_utils
@@ -137,7 +137,7 @@ def patch_index_map(im1: IndexMap, m: SurfelMap, new_pix, vmap_raw,
         pos=torch.where(tk3, vmap_raw, pos_w),
         conf=torch.where(take, conf_px, conf_w),
         color=torch.where(tk3, rgb.to(torch.float32), col_w),
-        init_time=torch.where(take, float(time), it_w),
+        init_time=torch.where(take, host_or_device(time), it_w),
         last_seen=torch.where(take, -2.0, ls_w),
         normal=torch.where(tk3, nmap_filt, n_w),
         radius=torch.where(take, rad_px, rad_w),
@@ -187,7 +187,7 @@ def combined_predict(index_map: IndexMap, intr: CameraIntrinsics, max_depth,
     best_z, best_src = kernels.predict_l0_scan(
         index_map.pos.contiguous(), index_map.normal.contiguous(),
         index_map.radius.contiguous(), index_map.index >= 0,
-        intr.fx, intr.fy, intr.cx, intr.cy, float(max_depth), window)
+        kernels.intrinsics(intr, dev), float(max_depth), window)
 
     tables = [index_map]
     if coarse is not None:

@@ -25,6 +25,16 @@ opened inside (-1: none), the thread id and, for a counter, its values,
 which may be device tensors: they are read by ``read_log``, after the run, so
 recording never waits on the device.  The log keeps at most ``LOG_CAP``
 records and counts the ones it had to drop.
+
+Work replayed as a CUDA graph (tracking/graphs) runs no Python, so its
+host-side records are taken by the replays: while a graph captures a
+function on a thread (``noting``), each ``count`` and each ``replayed``
+action of that function is noted instead of taken, and every replay of the
+graph takes it with the replay's values of its device tensors.  While the
+graph's eager warm-up runs (``warming_up``) ``replayed`` actions are not
+taken: a kernel wrapper's launch count counts the launches the program
+asks for, not the warm-up's extra one, which ``count`` records (the
+profiler sees it).
 """
 
 from __future__ import annotations
@@ -33,8 +43,9 @@ import contextlib
 import threading
 import time
 from collections import defaultdict
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
+import torch
 from torch.autograd import profiler as _profiler
 
 LOG_CAP = 1_000_000
@@ -123,6 +134,49 @@ class SpanLog:
 
 LOG = SpanLog()
 
+# what a CUDA graph capture on this thread is doing: ``warm`` while its
+# eager warm-up runs, ``noted`` (a list) while it captures
+_GRAPH = threading.local()
+
+
+@contextlib.contextmanager
+def warming_up():
+    """While a graph's eager warm-up runs on this thread."""
+    _GRAPH.warm = True
+    try:
+        yield
+    finally:
+        _GRAPH.warm = False
+
+
+@contextlib.contextmanager
+def noting():
+    """While a graph captures on this thread: yields the list of the
+    records the captured work notes, (action, device tensors) pairs that
+    each replay takes as ``action(**tensors)``."""
+    noted = _GRAPH.noted = []
+    try:
+        yield noted
+    finally:
+        _GRAPH.noted = None
+
+
+def in_graph_capture() -> bool:
+    """Whether a graph's warm-up or capture runs on this thread."""
+    return (getattr(_GRAPH, "warm", False)
+            or getattr(_GRAPH, "noted", None) is not None)
+
+
+def replayed(action: Callable[..., None], **tensors) -> None:
+    """Takes a host-side record of device work: ``action(**tensors)`` now;
+    while a graph captures on this thread, at each of its replays; never
+    for a graph's warm-up."""
+    noted = getattr(_GRAPH, "noted", None)
+    if noted is not None:
+        noted.append((action, tensors))
+    elif not getattr(_GRAPH, "warm", False):
+        action(**tensors)
+
 
 def recording() -> bool:
     """Whether a torch profiler runs in this process.  The profiler's
@@ -168,8 +222,15 @@ def span_since(name: str, id_, start_ns: int) -> None:
 
 def count(name: str, id_=None, **values) -> None:
     """Records a counter while a profiler runs; values may be device
-    tensors, read when the log is read."""
-    if recording():
+    tensors, read when the log is read.  Counted inside a graph's capture,
+    it is recorded by each replay instead (``noting``)."""
+    noted = getattr(_GRAPH, "noted", None)
+    if noted is not None:
+        tensors = {k: v for k, v in values.items()
+                   if isinstance(v, torch.Tensor)}
+        fixed = {k: v for k, v in values.items() if k not in tensors}
+        noted.append((lambda **t: count(name, id_, **fixed, **t), tensors))
+    elif recording():
         LOG.count(name, id_, values)
 
 

@@ -1035,7 +1035,8 @@ def test_spans_on_the_card_under_cuda_activity(cuda_device):
     args = [torch.rand(H, W, 3, generator=g).to(cuda_device),
             torch.rand(H, W, 3, generator=g).to(cuda_device),
             torch.rand(H, W, generator=g).to(cuda_device), live,
-            130.0, 130.0, 80.0, 60.0, 5.0]
+            torch.tensor([130.0, 130.0, 80.0, 60.0], device=cuda_device),
+            5.0]
     a = torch.randn(256, 256, device=cuda_device)
     kernels.predict_l0_scan(*args)
     torch.cuda.synchronize()

@@ -183,7 +183,7 @@ def test_scan_plain_matches_pallas_outputs():
         INTR.cx, INTR.cy, 5.0, interpret=True)
     zt, st = kernels.predict_l0_scan(
         t(imj.pos), t(imj.normal), t(imj.radius), t(imj.index) >= 0,
-        INTR.fx, INTR.fy, INTR.cx, INTR.cy, 5.0)
+        kernels.intrinsics(INTR, CPU), 5.0)
     assert st.dtype == torch.int32
     differ = (n(st) != n(sj).astype(np.int32))
     assert differ.mean() < 3e-3

@@ -76,8 +76,8 @@ def test_nothing_is_recorded_without_a_profiler():
     stopwatch.span_since("frame_to_pose", 3, 0)
     live = torch.rand(12, 16) > 0.5
     kernels.predict_l0_scan(torch.rand(12, 16, 3), torch.rand(12, 16, 3),
-                            torch.rand(12, 16), live, 10.0, 10.0, 8.0, 6.0,
-                            5.0)
+                            torch.rand(12, 16), live,
+                            torch.tensor([10.0, 10.0, 8.0, 6.0]), 5.0)
     assert stopwatch.read_log() == [] and stopwatch.LOG.dropped == 0
     assert set(sw.summary()) == {"odom"} and sw.counts["odom"] == 1
     assert sw.last_ms["odom"] >= 0.0
@@ -188,8 +188,9 @@ def test_scan_live_counts_the_plain_paths_live():
             kernels.predict_l0_scan(
                 torch.rand(H, W, 3, generator=g),
                 torch.rand(H, W, 3, generator=g),
-                torch.rand(H, W, generator=g), live, 20.0, 20.0, W / 2,
-                H / 2, 5.0, window=window)
+                torch.rand(H, W, generator=g), live,
+                torch.tensor([20.0, 20.0, W / 2, H / 2]), 5.0,
+                window=window)
             live_np = live.numpy()
             rec = stopwatch.read_log()[-1]
             assert rec["kind"] == "counter" and rec["name"] == "scan_live"

@@ -148,16 +148,14 @@ class _Replayer:
         self.fn, self.static, self.flat = fn, static, flat
 
     def replay(self):
-        self.flat.copy_(torch.cat([o.reshape(-1)
-                                   for o in self.fn(*self.static)]))
+        self.flat.copy_(graphs.flatten(self.fn(*self.static))[0])
 
 
 def _stand_in_capture(self, fn, inputs, keep):
     static = [graphs._static_copy(x, torch.device("cpu")) for x in inputs]
-    outs = fn(*static)
-    flat = torch.cat([o.reshape(-1) for o in outs])
-    return graphs._Graph(_Replayer(fn, static, flat), static, flat,
-                         [o.shape for o in outs], 0, keep())
+    flat, layout = graphs.flatten(fn(*static))
+    return graphs._Graph(_Replayer(fn, static, flat), static, flat, layout,
+                         0, keep())
 
 
 def test_runner_copies_inputs_and_clones_outputs(monkeypatch):
